@@ -1,6 +1,6 @@
-"""Batched CholeskyQR2 path (drivers/cholqr.py — VERDICT r2 next-#6):
-grouped Pallas POTRF + matmul-only triangular inverse and orthogonality
-correction, against numpy oracles."""
+"""Batched CholeskyQR2 path (drivers/cholqr.py): batched Cholesky +
+matmul-only triangular inverse and orthogonality correction, against numpy
+oracles."""
 
 import jax
 import jax.numpy as jnp
@@ -12,28 +12,39 @@ from tileqr import QRConfig
 from tileqr.drivers.cholqr import (
     _triu_inv_doubling,
     cholqr2_batched,
-    potrf_batched,
+    potrf,
 )
 
 
 def test_potrf_matches_numpy(rng):
     a = rng.standard_normal((8, 64, 32)).astype(np.float32)
     g = np.einsum("bij,bik->bjk", a, a).astype(np.float32)
-    r = np.asarray(potrf_batched(jnp.asarray(g), group=4, bp=8), np.float64)
+    r = np.asarray(potrf(jnp.asarray(g)), np.float64)
     for i in range(8):
         r_np = np.linalg.cholesky(g[i].astype(np.float64)).T
         assert np.linalg.norm(r[i] - r_np) / np.linalg.norm(r_np) < 1e-6
-        # strictly-lower part is exactly zero (masked writes)
+        # strictly-lower part is exactly zero
         assert (np.tril(r[i], -1) == 0).all()
 
 
 def test_potrf_tail_block(rng):
-    """n not a multiple of bp exercises the short tail block."""
+    """A width that no power-of-two blocking divides (24 = 3·8)."""
     a = rng.standard_normal((4, 50, 24)).astype(np.float32)
     g = np.einsum("bij,bik->bjk", a, a).astype(np.float32)
-    r = np.asarray(potrf_batched(jnp.asarray(g), group=2, bp=16), np.float64)
+    r = np.asarray(potrf(jnp.asarray(g)), np.float64)
     r_np = np.linalg.cholesky(g[0].astype(np.float64)).T
     assert np.linalg.norm(r[0] - r_np) / np.linalg.norm(r_np) < 1e-6
+
+
+@pytest.mark.parametrize("b,n", [(1, 256), (3, 40)])
+def test_potrf_shapes(rng, b, n):
+    """RᵀR = G at the hr panel width (1, 256) and a small odd stack."""
+    x = rng.standard_normal((b, 2 * n, n))
+    g = np.einsum("bmi,bmj->bij", x, x).astype(np.float32)
+    r = np.asarray(potrf(jnp.asarray(g)), np.float64)
+    g64 = g.astype(np.float64)
+    assert np.abs(np.swapaxes(r, 1, 2) @ r - g64).max() / np.abs(g64).max() < 1e-6
+    assert (np.tril(r, -1) == 0).all()
 
 
 def test_triu_inv_doubling(rng):
@@ -63,7 +74,7 @@ def test_triu_inv_doubling(rng):
 
 def test_cholqr2_residual_and_orthogonality(rng):
     a = rng.standard_normal((16, 96, 48)).astype(np.float32)
-    q, r = cholqr2_batched(jnp.asarray(a), group=8, bp=16)
+    q, r = cholqr2_batched(jnp.asarray(a))
     q = np.asarray(q, np.float64)
     r = np.asarray(r, np.float64)
     for i in range(16):
@@ -88,7 +99,7 @@ def test_qr_batched_cholqr2_api(rng):
 
 def test_tsqr_cholqr2_strategy(rng):
     """tsqr(strategy="cholqr2"): tall-skinny R via one gram + POTRF — no
-    Householder column loops (BASELINE.md r3)."""
+    Householder column loops."""
     a = rng.standard_normal((1024, 48)).astype(np.float32)
     r = np.asarray(tileqr.tsqr(a, mode="r", strategy="cholqr2"), np.float64)
     _, r_np = np.linalg.qr(a.astype(np.float64))
@@ -109,7 +120,7 @@ def test_tsqr_cholqr2_factor_mode(rng):
     Qᵀ/Q roundtrip is the identity, orgqr's Q matches mode="reduced"'s up
     to the reconstruction's fp32 rounding, and the breakdown guard falls
     back to tree factors on a rank-deficient panel. (m=1024 exercises the
-    same single-gram path as the old 2048 at ~60% of the interpret cost —
+    same single-gram path as the old 2048 at ~60% of the cost —
     r5 fast-suite budget.)"""
     m, n = 1024, 48
     a = rng.standard_normal((m, n)).astype(np.float32)
@@ -137,10 +148,8 @@ def test_tsqr_cholqr2_factor_mode(rng):
 
 def test_tsqr_auto_factor_routes_cholqr2(rng):
     """strategy="auto", mode="factor" routes to the cholqr2-reconstruction
-    path — the measured 3.07× factor+apply winner (108.4 vs the tree's
-    332.4 ms at config 3, BASELINE.md r4). Before r5, auto resolved to
-    "chain" and then silently executed the TREE factor body (VERDICT r4
-    weak-#5) — the executed path now matches the resolved name. Healthy
+    path (VERDICT r4 weak-#5: the executed path matches the resolved
+    name). Healthy
     input → HRFactors bitwise-identical to the explicitly-named strategy;
     breakdown input → tree TSQRFactors with the guard warning (the stable
     backstop)."""
@@ -193,17 +202,17 @@ def test_qr_batched_bad_method():
 
 
 def test_bdot_pair_rows_matches_reference(rng):
-    """Pairwise tall contraction (the √m-error fix, BASELINE.md r3 probe):
+    """Pairwise tall contraction (the √m-error fix):
     tree-accumulated xᵀy equals the f64 reference; both the tail path
     (m not a block multiple) and the short fallback are exercised."""
-    from tileqr.drivers.cholqr import bdot_pair_rows
+    from tileqr.kernels.common import bdot_pair_rows
 
     hi = jax.lax.Precision.HIGHEST
     for m in (2072, 1024, 600):  # tail, exact blocks, nblk<2 fallback
         x = rng.standard_normal((2, m, 16)).astype(np.float32)
         y = rng.standard_normal((2, m, 8)).astype(np.float32)
         out = np.asarray(
-            bdot_pair_rows(jnp.asarray(x), jnp.asarray(y), hi, jnp.float32),
+            bdot_pair_rows(jnp.asarray(x), jnp.asarray(y), hi),
             np.float64,
         )
         ref = np.einsum("bmp,bmq->bpq", x.astype(np.float64), y.astype(np.float64))
@@ -214,14 +223,13 @@ def test_bdot_pair_rows_cap_bytes(rng):
     """The partial-stack memory cap reduces the block count, not the
     answer: a tiny cap must fall back toward (and at 1 block, exactly to)
     the plain contraction while staying correct."""
-    from tileqr.drivers.cholqr import bdot_pair_rows
+    from tileqr.kernels.common import bdot_pair_rows
 
     hi = jax.lax.Precision.HIGHEST
     x = rng.standard_normal((1, 4096, 16)).astype(np.float32)
-    big = np.asarray(bdot_pair_rows(jnp.asarray(x), jnp.asarray(x), hi, jnp.float32))
+    big = np.asarray(bdot_pair_rows(jnp.asarray(x), jnp.asarray(x), hi))
     small = np.asarray(
-        bdot_pair_rows(jnp.asarray(x), jnp.asarray(x), hi, jnp.float32,
-                       cap_bytes=2 * 16 * 16 * 4)
+        bdot_pair_rows(jnp.asarray(x), jnp.asarray(x), hi, cap_bytes=2 * 16 * 16 * 4)
     )
     ref = np.einsum("bmp,bmq->bpq", x.astype(np.float64), x.astype(np.float64))
     for out in (big, small):
@@ -257,9 +265,9 @@ def test_tsqr_cholqr2_guard_fallback(rng):
 
 def test_qr_batched_cholqr2_guard_fallback(rng):
     """qr_batched(batched_method='cholqr2') with ONE ill-conditioned batch
-    member (the documented square-gaussian-tail hazard, BASELINE.md r3:
-    a breakdown measured relerr 1e+57) must warn and re-route the whole
-    batch through the Householder kernels."""
+    member (the square-gaussian-tail hazard: a breakdown gives a relerr of
+    order 1e+57) must warn and re-route the whole batch through the
+    Householder path."""
     import pytest as _pytest
 
     import tileqr

@@ -1,6 +1,8 @@
-"""Tile-layout helpers (component C6): padding + block-cyclic pack/unpack."""
+"""Tile-layout helpers (component C6): padding + block-cyclic pack/unpack,
+and the mesh shape derived from the device count."""
 
 import numpy as np
+import pytest
 
 from tileqr.core import layout
 
@@ -31,25 +33,11 @@ def test_owner_and_counts():
     assert layout.local_tile_counts(10, 6, 4, 2, 1, 0) == (3, 3)
 
 
-def test_qrconfig_ib_clamps_to_nb_divisor():
-    """Review r2: the ib=128 default must not invalidate nb values that
-    were legal under ib=32 — ib auto-clamps to the largest divisor of nb."""
-    from tileqr.core.config import QRConfig
+@pytest.mark.parametrize("n_devices,shape", [(1, (1, 1)), (4, (2, 2)), (8, (4, 2))])
+def test_mesh_shape_for_device_count(n_devices, shape):
+    """The default sharded mesh is derived from the device count: the
+    widest pr >= pc factorization (one card, a four-card host, eight)."""
+    from tileqr.core.config import QRConfig, mesh_shape_for
 
-    assert QRConfig(nb=160).ib == 80
-    assert QRConfig(nb=192).ib == 96
-    assert QRConfig(nb=320).ib == 80
-    assert QRConfig(nb=256).ib == 128
-    assert QRConfig(nb=64).ib == 64
-
-
-def test_qrconfig_rejects_nonpositive_ib():
-    """Review r2b: ib < 1 must raise, not clamp to a negative divisor."""
-    import pytest
-
-    from tileqr.core.config import QRConfig
-
-    with pytest.raises(ValueError):
-        QRConfig(nb=64, ib=-3)
-    with pytest.raises(ValueError):
-        QRConfig(nb=64, ib=0)
+    assert mesh_shape_for(n_devices) == shape
+    assert QRConfig().mesh_shape is None

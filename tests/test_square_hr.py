@@ -12,6 +12,7 @@ import pytest
 
 import tileqr
 from tileqr import QRConfig
+from tileqr.drivers import square
 from tileqr.drivers.square_hr import hr_panel, pad_for_hr, qr_hr
 from tileqr.kernels.modlu import modified_lu
 
@@ -29,7 +30,7 @@ def test_modified_lu_identity(rng):
     pivot = |q_jj| + 1 after the preceding eliminations — Ballard et al.)."""
     q_np, _ = np.linalg.qr(rng.standard_normal((128, 32)))
     q = jnp.asarray(q_np, jnp.float32)
-    lu, d = modified_lu(q[:32], interpret=True)
+    lu, d = modified_lu(q[:32])
     lu64 = np.asarray(lu, np.float64)
     l1 = np.tril(lu64, -1) + np.eye(32)
     u = np.triu(lu64)
@@ -39,12 +40,29 @@ def test_modified_lu_identity(rng):
     assert set(np.unique(np.asarray(d))) <= {-1.0, 1.0}
 
 
+@pytest.mark.parametrize("n", [8, 64, 128, 256])
+def test_modified_lu_widths(rng, n):
+    """The plain modified LU at panel widths up to the acceptance nb:
+    L·U = Q1 − diag(d) and every pivot |u_jj| ≥ 1 (the on-the-fly sign
+    choice bounds them to [1, 2])."""
+    q_np, _ = np.linalg.qr(rng.standard_normal((2 * n, n)))
+    q = jnp.asarray(q_np[:n], jnp.float32)
+    lu, d = modified_lu(q)
+    lu64 = np.asarray(lu, np.float64)
+    l1 = np.tril(lu64, -1) + np.eye(n)
+    u = np.triu(lu64)
+    resid = l1 @ u - (np.asarray(q, np.float64) - np.diag(np.asarray(d, np.float64)))
+    assert np.abs(resid).max() < 1e-5
+    assert np.abs(np.diag(u)).min() >= 1.0 - 1e-6
+    assert set(np.unique(np.asarray(d))) <= {-1.0, 1.0}
+
+
 def test_hr_panel_compact_wy(rng):
     """One panel: (Y, T) reconstructed from CholeskyQR2's Q satisfies the
     GEQRT contract — Y unit lower trapezoidal, T upper triangular,
     (I − Y T Yᵀ)[:, :nb] · R = panel."""
     p = jnp.asarray(rng.standard_normal((128, 32)), jnp.float32)
-    y, t, r = hr_panel(p, interpret=True)
+    y, t, r = hr_panel(p)
     y64, t64 = np.asarray(y, np.float64), np.asarray(t, np.float64)
     assert np.allclose(np.diag(y64[:32]), 1.0, atol=1e-5)
     assert np.abs(np.triu(y64[:32], 1)).max() < 1e-6
@@ -79,10 +97,7 @@ def test_qr_hr_complete_tall(rng):
 
 def test_hr_orgqr_reduced_ncols(rng):
     """ncols < nb exercises the empty-trailing-panel skip; 40 the partial
-    tile. Leading columns match the full Q to fp32 ulps (unlike the hh
-    kernels' per-column-tile grids, the hr path's dense matmuls may block
-    differently for different widths, so bitwise equality is NOT part of
-    this path's contract — rounding-level agreement is)."""
+    tile. Leading columns match the full Q to fp32 ulps."""
     a = rng.standard_normal((128, 128)).astype(np.float32)
     f = tileqr.qr_factor(a, CFG)
     q_full = np.asarray(tileqr.orgqr(f, config=CFG))
@@ -154,7 +169,7 @@ def test_hr_pad_for_hr_identity_block(rng):
     ap, (m, n) = pad_for_hr(jnp.asarray(a), 32)
     assert ap.shape[0] % 32 == 0 and ap.shape[1] % 32 == 0
     assert np.allclose(np.asarray(ap)[:m, :n], a)
-    r, panels = qr_hr(ap, 32, interpret=True)
+    r, panels = qr_hr(ap, 32)
     # real block of R matches the unpadded factorization
     r_ref = np.linalg.qr(a.astype(np.float64))[1]
     r64 = np.asarray(r, np.float64)[:n, :n]
@@ -167,64 +182,17 @@ def test_hr_config_validation():
         QRConfig(square_method="nope")
 
 
-def test_hr_b3_protected_split(rng):
-    """precision="b3" on hr rides the barrier-protected XLA-level split
-    (kernels/common.dot_b3_xla): r3 first REJECTED b3 here because the
-    naive split folds to one bf16 pass under
-    --xla_allow_excess_precision; the mid-convert optimization_barrier
-    fixes that (scripts/tpu_r3_b3_barrier.py). The trailing updates run
-    b3 while panels/reconstruction stay HIGHEST, so the factorization must
-    land in the b3 accuracy class (~1e-5), far better than one bf16 pass
-    (~1e-2). On CPU the DEFAULT-precision passes are computed in fp32, so
-    this test pins the plumbing (routing + correctness), not the on-chip
-    error — that's BASELINE.md's job. Since r4 b3 follows the same
-    static/chunked panel-count rule as "highest" (measured,
-    scripts/r4_b3_routing.py), so both routes are pinned here: "static"
-    resolves to the trace-unrolled qr_hr (value-form panel_apply),
-    "dynamic" to the segmented qr_hr_chunked (in-place panel_apply)."""
-    a = rng.standard_normal((128, 96)).astype(np.float32)
-    for driver in ("static", "dynamic"):
-        cfg = CFG.replace(precision="b3", driver=driver)
-        q, r = tileqr.qr(a, config=cfg)
-        assert relerr(np.asarray(q, np.float64) @ np.asarray(r, np.float64), a) < 1e-4
-        q64 = np.asarray(q, np.float64)
-        assert np.linalg.norm(q64.T @ q64 - np.eye(96)) < 1e-3
-
-
-def test_hr_b4_precision_class(rng):
-    """precision="b4" (the r5 precision-ladder point between b3 and
-    HIGHEST): a 4th emulation pass (lo·lo) removes b3's dropped-term error
-    but NOT the 2-way split's ~2⁻¹⁷ representation residual, so b4 lands
-    ~2× better than b3 and still outside the 1e-6 gate (measured
-    full-width 3.05e-06 vs 7.08e-06 at 16384², BASELINE.md r5 ladder).
-    This pins the routing/plumbing on both driver routes; like the b3
-    twin above, CPU DEFAULT-precision passes run in fp32, so the on-chip
-    error class is BASELINE.md's claim, not this test's."""
-    a = rng.standard_normal((128, 96)).astype(np.float32)
-    for driver in ("static", "dynamic"):
-        cfg = CFG.replace(precision="b4", driver=driver)
-        q, r = tileqr.qr(a, config=cfg)
-        assert relerr(np.asarray(q, np.float64) @ np.asarray(r, np.float64), a) < 1e-4
-        q64 = np.asarray(q, np.float64)
-        assert np.linalg.norm(q64.T @ q64 - np.eye(96)) < 1e-3
-
-
 def test_hr_chunked_bitwise_matches_static(rng):
-    """The bounded-compile segmented driver (qr_hr_chunked) with the XLA
-    apply form (use_kernel=False) is the SAME algorithm cut at jit
-    boundaries: R and every (Y, T) panel must be bitwise-equal to the
-    trace-unrolled qr_hr. (Since r5 the chunked default routes "highest"
-    through the in-place Pallas kernel — block-accumulated, so
-    ROUNDING-level equal, pinned by the next test — hence the explicit
-    use_kernel=False here.)"""
+    """The bounded-compile segmented driver (qr_hr_chunked) is the SAME
+    algorithm cut at jit boundaries: R and every (Y, T) panel must be
+    bitwise-equal to the trace-unrolled qr_hr."""
     from tileqr.drivers.square_hr import qr_hr_chunked
 
     a = rng.standard_normal((192, 160)).astype(np.float32)
     ap1, _ = pad_for_hr(jnp.asarray(a), 32)
-    r1, p1 = qr_hr(ap1, 32, interpret=True)
+    r1, p1 = qr_hr(ap1, 32)
     ap2, _ = pad_for_hr(jnp.asarray(a), 32)  # fresh buffer: chunked donates
-    r2, p2 = qr_hr_chunked(ap2, 32, interpret=True, seg_panels=2,
-                           use_kernel=False)
+    r2, p2 = qr_hr_chunked(ap2, 32, seg_panels=2)
     assert (np.asarray(r1) == np.asarray(r2)).all()
     assert len(p1) == len(p2)
     for (y1, t1), (y2, t2) in zip(p1, p2):
@@ -233,97 +201,26 @@ def test_hr_chunked_bitwise_matches_static(rng):
 
 
 def test_hr_chunked_panel_anchor_still_runs(rng):
-    """r5 review finding: the use_kernel auto-default must respect
-    r_anchor — the kernel apply only implements the cholqr anchor, so
-    r_anchor="panel" at default precision="highest" has to resolve to the
-    XLA form (which IS bitwise-equal to qr_hr) instead of raising. The
-    chunked driver is the only hr route past 64 panels, so the documented
-    r_anchor A/B knob must keep working through it."""
+    """The r_anchor="panel" A/B knob works through the segmented driver
+    (the only hr route past square.STATIC_MAX_PANELS) and stays
+    bitwise-equal to qr_hr."""
     from tileqr.drivers.square_hr import qr_hr_chunked
 
     a = rng.standard_normal((128, 96)).astype(np.float32)
     ap1, _ = pad_for_hr(jnp.asarray(a), 32)
-    r1, p1 = qr_hr(ap1, 32, interpret=True, r_anchor="panel")
+    r1, p1 = qr_hr(ap1, 32, r_anchor="panel")
     ap2, _ = pad_for_hr(jnp.asarray(a), 32)
-    r2, p2 = qr_hr_chunked(ap2, 32, interpret=True, seg_panels=2,
-                           r_anchor="panel")
+    r2, p2 = qr_hr_chunked(ap2, 32, seg_panels=2, r_anchor="panel")
     assert (np.asarray(r1) == np.asarray(r2)).all()
     for (y1, t1), (y2, t2) in zip(p1, p2):
         assert (np.asarray(y1) == np.asarray(y2)).all()
         assert (np.asarray(t1) == np.asarray(t2)).all()
 
 
-def test_hr_chunked_kernel_highest_matches_static(rng):
-    """The r5 default chunked route for precision="highest" (in-place
-    Pallas whole-panel apply, VERDICT r4 missing-#1): same algebra with
-    Kahan-compensated blocked W accumulation, so R/panels agree with the
-    trace-unrolled XLA driver to fp32 rounding (not bitwise), the
-    factorization passes the residual gate, and two runs are bitwise-equal
-    to each other (determinism contract of the kernel path)."""
-    from tileqr.drivers.square_hr import qr_hr_chunked
-
-    a = rng.standard_normal((192, 160)).astype(np.float32)
-    ap1, _ = pad_for_hr(jnp.asarray(a), 32)
-    r1, _ = qr_hr(ap1, 32, interpret=True)
-    ap2, _ = pad_for_hr(jnp.asarray(a), 32)
-    r2, p2 = qr_hr_chunked(ap2, 32, interpret=True, seg_panels=2)  # default
-    assert np.abs(np.asarray(r2) - np.asarray(r1)).max() < 1e-4
-    ap3, _ = pad_for_hr(jnp.asarray(a), 32)
-    r3, p3 = qr_hr_chunked(ap3, 32, interpret=True, seg_panels=2)
-    assert (np.asarray(r2) == np.asarray(r3)).all()
-    for (y2, t2), (y3, t3) in zip(p2, p3):
-        assert (np.asarray(y2) == np.asarray(y3)).all()
-        assert (np.asarray(t2) == np.asarray(t3)).all()
-    # residual gate through the factors (HIGHEST apply)
-    from tileqr.drivers.square_hr import apply_q_hr
-
-    qta = np.asarray(
-        apply_q_hr(p2, jnp.asarray(np.pad(a, ((0, 0), (0, 0)))), 32,
-                   trans=True, interpret=True),
-        np.float64,
-    )
-    r64 = np.asarray(r2, np.float64)[:, :160]
-    assert np.linalg.norm(qta[:160] - r64[:160]) / np.linalg.norm(a) < 3e-6
-    assert np.linalg.norm(qta[160:]) / np.linalg.norm(a) < 3e-6
-
-
-def test_panel_apply_carry_highest_multiblock(rng):
-    """panel_apply_carry at precision="highest" with ≥2 row/col blocks
-    (m = 576 > the 512 block target → mr = 288): the in-kernel HIGHEST
-    apply (the r5 chunked-hr default) must match the f64 reference apply
-    to fp32 accuracy through the blocked Kahan accumulation, leave the
-    rows/cols outside the window untouched, and be deterministic."""
-    from tileqr.drivers.square_hr import hr_panel
-    from tileqr.kernels.panel_apply import panel_apply_carry
-
-    nb, m = 32, 576
-    carry = rng.standard_normal((m + nb, m + nb)).astype(np.float32)
-    p = jnp.asarray(carry[nb:, nb : 2 * nb])
-    y, t, _ = hr_panel(p, interpret=True)
-    out = np.asarray(
-        panel_apply_carry(y, t, jnp.asarray(carry), k=1, nb=nb, trans=True,
-                          precision="highest", interpret=True)
-    )
-    assert (out[:nb] == carry[:nb]).all()  # rows above the window untouched
-    assert (out[:, : 2 * nb] == carry[:, : 2 * nb]).all()  # left of window
-    y64, t64 = np.asarray(y, np.float64), np.asarray(t, np.float64)
-    win = carry[nb:, 2 * nb :].astype(np.float64)
-    ref = win - y64 @ (t64.T @ (y64.T @ win))
-    got = out[nb:, 2 * nb :].astype(np.float64)
-    # 576-term fp32 contractions: |W| ~ √m, rounding ~ √m·eps ≈ 1.4e-6
-    # absolute — the 1.1e-6 measured max is legitimate fp32 class
-    assert np.abs(got - ref).max() / np.abs(ref).max() < 3e-6
-    out2 = np.asarray(
-        panel_apply_carry(y, t, jnp.asarray(carry), k=1, nb=nb, trans=True,
-                          precision="highest", interpret=True)
-    )
-    assert (out == out2).all()
-
-
 def test_hr_api_routes_large_panel_counts_to_chunked(rng, monkeypatch):
     """qr_factor(square_method="hr") at a panel count past the auto-static
-    ceiling must use the segmented driver (the trace-unrolled one OOMs the
-    XLA compile at 128 panels on hardware)."""
+    ceiling must use the segmented driver (bounded compile, donated
+    carry)."""
     import tileqr.api as api
 
     called = {}
@@ -335,8 +232,8 @@ def test_hr_api_routes_large_panel_counts_to_chunked(rng, monkeypatch):
 
     monkeypatch.setattr(api, "qr_hr_chunked", spy)
     a = rng.standard_normal((40, 40)).astype(np.float32)
-    cfg = QRConfig(nb=8, ib=8, square_method="hr")  # 5 panels > ceiling below
-    monkeypatch.setattr(QRConfig, "AUTO_STATIC_MAX_PANELS", 4)
+    cfg = QRConfig(nb=8, square_method="hr")  # 5 panels > ceiling below
+    monkeypatch.setattr(square, "STATIC_MAX_PANELS", 4)
     q, r = tileqr.qr(a, config=cfg)
     assert called.get("yes")
     assert relerr(np.asarray(q, np.float64) @ np.asarray(r, np.float64), a) < 1e-5
@@ -349,26 +246,24 @@ def test_hr_apply_q_chunked_matches_unrolled(rng):
 
     a = rng.standard_normal((160, 128)).astype(np.float32)
     ap, _ = pad_for_hr(jnp.asarray(a), 32)
-    r, panels = qr_hr(ap, 32, interpret=True)
+    r, panels = qr_hr(ap, 32)
     c_np = rng.standard_normal((160, 64)).astype(np.float32)
     for trans in (True, False):
         ref = np.asarray(
             tileqr.api.apply_q_hr(
-                panels, jnp.asarray(c_np), 32, trans=trans, interpret=True
+                panels, jnp.asarray(c_np), 32, trans=trans
             )
         )
         # fresh target per call: the chunked apply DONATES it
         out = np.asarray(
-            apply_q_hr_chunked(panels, jnp.asarray(c_np), 32, trans=trans,
-                               interpret=True, seg_panels=2)
+            apply_q_hr_chunked(panels, jnp.asarray(c_np), 32, trans=trans, seg_panels=2)
         )
         assert (ref == out).all()
 
 
 def test_hr_api_routes_large_panel_counts_to_chunked_apply(rng, monkeypatch):
     """apply_q/orgqr on HRFactors past the static panel ceiling must take
-    the segmented apply (the unrolled one grows the compile like the
-    factor's did at 128 panels); results stay correct."""
+    the segmented apply; results stay correct."""
     import tileqr.api as api
 
     called = {}
@@ -379,7 +274,7 @@ def test_hr_api_routes_large_panel_counts_to_chunked_apply(rng, monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(api, "apply_q_hr_chunked", spy)
-    monkeypatch.setattr(QRConfig, "AUTO_STATIC_MAX_PANELS", 2)
+    monkeypatch.setattr(square, "STATIC_MAX_PANELS", 2)
     a = rng.standard_normal((128, 96)).astype(np.float32)
     cfg = QRConfig(nb=32, square_method="hr")
     q, r = tileqr.qr(a, config=cfg)  # 3 panels > 2 → chunked orgqr
@@ -387,28 +282,6 @@ def test_hr_api_routes_large_panel_counts_to_chunked_apply(rng, monkeypatch):
     assert relerr(np.asarray(q, np.float64) @ np.asarray(r, np.float64), a) < 1e-5
     q64 = np.asarray(q, np.float64)
     assert np.linalg.norm(q64.T @ q64 - np.eye(96)) < 1e-4
-
-
-def test_panel_apply_kahan_accumulation():
-    """The W projection's cross-block accumulation is Kahan-compensated
-    (kernels/panel_apply._kahan_add): a 1.0 block partial followed by 31
-    partials of 2⁻²⁵ — each below half an ulp of the running sum, so a
-    naive fp32 accumulation drops ALL of them and returns exactly 1.0 —
-    must come out at ≈ 1 + 31·2⁻²⁵. Pins both the compensation algebra and
-    that the compiler does not fold the (t − acc) − y cancellation away."""
-    from tileqr.kernels.panel_apply import _panel_project_call
-
-    mr, blocks, q = 8, 32, 8
-    y = jnp.tile(jnp.eye(mr, dtype=jnp.float32), (blocks, 1))
-    vals = np.full((blocks,), 2.0 ** -25, np.float32)
-    vals[0] = 1.0
-    c = jnp.asarray(np.repeat(vals, mr)[:, None] * np.ones((1, q), np.float32))
-    w = np.asarray(
-        _panel_project_call(y, c, "highest", True, mr, q), np.float64
-    )
-    expected = 1.0 + (blocks - 1) * 2.0 ** -25
-    assert (w > 1.0 + 2.0 ** -24).all()  # naive accumulation gives exactly 1.0
-    assert np.abs(w - expected).max() <= 2.0 ** -23
 
 
 def test_apply_block_narrow_pairwise_accuracy(rng):
@@ -419,11 +292,11 @@ def test_apply_block_narrow_pairwise_accuracy(rng):
 
     m, nb = 2048, 32
     p = jnp.asarray(rng.standard_normal((m, nb)).astype(np.float32))
-    y, t, _ = hr_panel(p, interpret=True)
+    y, t, _ = hr_panel(p)
     c = jnp.asarray(rng.standard_normal((m, 8)).astype(np.float32))
     out = np.asarray(
         _apply_block_t(y, t, c, jax.lax.Precision.HIGHEST, jnp.float32,
-                       trans=True, interpret=True),
+                       trans=True),
         np.float64,
     )
     y64, t64 = np.asarray(y, np.float64), np.asarray(t, np.float64)
@@ -431,36 +304,18 @@ def test_apply_block_narrow_pairwise_accuracy(rng):
     assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-6
 
 
-def test_w_splitk_matches_reference(rng):
-    """Split-K W = YᵀC (drivers/square_hr._w_splitk): S flat row-block dots
-    + a balanced add tree must agree with a float64 reference on ragged
-    row counts (bounds are rounded down to sublane multiples; the guard
-    drops zero-width blocks for tiny m)."""
-    from tileqr.drivers.square_hr import _w_splitk
-
-    prec = jax.lax.Precision.HIGHEST
-    for m in (4104, 4096, 24):  # ragged, aligned, fewer rows than 8*S
-        y = jnp.asarray(rng.standard_normal((m, 16)).astype(np.float32))
-        c = jnp.asarray(rng.standard_normal((m, 40)).astype(np.float32))
-        w = np.asarray(_w_splitk(y, c, prec, jnp.float32), np.float64)
-        ref = np.asarray(y, np.float64).T @ np.asarray(c, np.float64)
-        assert np.abs(w - ref).max() / np.abs(ref).max() < 1e-6, m
-
-
 def test_apply_block_wide_splitk_accuracy(rng):
-    """Wide targets (> _W_PAIR_MAX_COLS) on tall panels (m ≥ 4096) route
-    W = YᵀC through the split-K projection in _apply_block_t — the branch
-    that made the static hr driver gate-grade at 16384² (BASELINE.md r3).
-    The apply must stay correct vs a float64 reference through it."""
-    from tileqr.drivers.square_hr import _W_PAIR_MAX_COLS, _apply_block_t
+    """Wide targets on tall panels (m ≥ 4096): W = YᵀC accumulates pairwise
+    over row blocks in _apply_block_t, the step that keeps the accumulation
+    error of wide updates down. The apply must stay correct vs a float64
+    reference through it."""
+    from tileqr.drivers.square_hr import _apply_block_t
 
-    m, nb, q = 4096, 32, _W_PAIR_MAX_COLS + 32
+    m, nb, q = 4096, 32, 1056
     # synthetic compact-WY-shaped factors (unit-lower-trapezoid Y, upper-
     # triangular T, reflector-like scaling): the branch under test is pure
     # linear algebra on these shapes — real hr_panel factors flow through
-    # the same branch in test_qr_hr_* and the sharded twins, and skipping
-    # the m=4096 interpret-mode panel factorization halves the test (r5
-    # fast-suite budget)
+    # the same branch in test_qr_hr_* and the sharded twins
     y_np = rng.standard_normal((m, nb)).astype(np.float32) / np.sqrt(m)
     y_np[:nb] = np.tril(y_np[:nb], -1) + np.eye(nb, dtype=np.float32)
     t_np = np.triu(rng.standard_normal((nb, nb)).astype(np.float32)) / nb
@@ -468,7 +323,7 @@ def test_apply_block_wide_splitk_accuracy(rng):
     c = jnp.asarray(rng.standard_normal((m, q)).astype(np.float32))
     out = np.asarray(
         _apply_block_t(y, t, c, jax.lax.Precision.HIGHEST, jnp.float32,
-                       trans=True, interpret=True),
+                       trans=True),
         np.float64,
     )
     y64, t64 = np.asarray(y, np.float64), np.asarray(t, np.float64)
@@ -484,15 +339,15 @@ def test_hr_stats_bitwise_and_healthy(rng):
 
     a = rng.standard_normal((160, 128)).astype(np.float32)
     ap, _ = pad_for_hr(jnp.asarray(a), 32)
-    r0, p0 = qr_hr(ap, 32, interpret=True)
-    r1, p1, h = qr_hr(ap, 32, interpret=True, stats=True)
+    r0, p0 = qr_hr(ap, 32)
+    r1, p1, h = qr_hr(ap, 32, stats=True)
     assert (np.asarray(r0) == np.asarray(r1)).all()
     for (y0, t0), (y1, t1) in zip(p0, p1):
         assert (np.asarray(y0) == np.asarray(y1)).all()
         assert (np.asarray(t0) == np.asarray(t1)).all()
     assert float(h) < 1e-3  # measured ~4e-7; tau default is 5e-2
     r2, _, h2 = qr_hr_chunked(
-        jnp.asarray(np.asarray(ap)), 32, interpret=True, stats=True,
+        jnp.asarray(np.asarray(ap)), 32, stats=True,
         seg_panels=2,
     )
     assert (np.asarray(r0) == np.asarray(r2)).all()

@@ -1,14 +1,13 @@
-"""tileqr — TPU-native tiled QR decomposition in JAX/Pallas.
+"""tileqr — tiled QR decomposition in JAX, compiled for the GPU by XLA.
 
-A from-scratch TPU-first implementation of the capability surface of the CUDA
-reference project ``s10m/GPU-Tiled-QR-Decomposition`` (see SURVEY.md; the
-reference mount was empty, so parity is defined by SURVEY.md §2 /
-BASELINE.json:5): blocked Householder QR built from the classic tile-kernel
-algebra — GEQRT panel factorization with compact-WY V/T accumulation resident
-in VMEM, MXU-matmul trailing updates (LARFB/SSRFB), a communication-avoiding
-TSQR/TTQRT binary-tree reduction for tall-skinny matrices — plus explicit Q
-formation (ORGQR), QR-based least-squares solve, a vmapped batched path, and
-2D block-cyclic sharding via ``shard_map`` with ICI collectives.
+The capability surface of the CUDA project
+``s10m/GPU-Tiled-QR-Decomposition`` (see SURVEY.md; parity is defined by
+SURVEY.md §2 / BASELINE.json:5): blocked Householder QR built from the
+classic tile algebra — GEQRT panel factorization (geqrf: cuSOLVER on the
+GPU) with compact-WY V/T, GEMM trailing updates (LARFB/SSRFB: cuBLAS), a
+communication-avoiding TSQR/TTQRT tree for tall-skinny matrices — plus
+explicit Q formation (ORGQR), QR-based least squares, a batched path, and
+2D block-cyclic sharding via ``shard_map`` with XLA collectives (NCCL).
 
 Public API
 ----------
@@ -18,7 +17,7 @@ Public API
 - :func:`tileqr.qr_batched` — vmapped batched QR.
 - :func:`tileqr.orgqr` / :func:`tileqr.apply_q` — form/apply Q.
 - :func:`tileqr.lstsq` — QR-based least squares.
-- :func:`tileqr.qr_sharded` — 2D block-cyclic multi-chip QR; consume its
+- :func:`tileqr.qr_sharded` — 2D block-cyclic multi-device QR; consume its
   distributed factors with :func:`tileqr.assemble_r_sharded` /
   :func:`tileqr.apply_q_sharded`.
 - :class:`tileqr.QRConfig` — tile/tree/precision configuration.

@@ -20,7 +20,16 @@ import jax.numpy as jnp
 from tileqr.core.config import QRConfig
 from tileqr.core.layout import pad_to_tiles, round_up
 from tileqr.drivers.batched import qr_batched as _qr_batched
-from tileqr.drivers.square import apply_q_tiled, assemble_r, qr_tiled
+from tileqr.drivers import square
+from tileqr.drivers.square import (
+    PanelStack,
+    apply_q_loop,
+    apply_q_tiled,
+    assemble_r,
+    qr_tiled,
+    qr_tiled_loop,
+)
+from tileqr.drivers import square_hr
 from tileqr.drivers.square_hr import (
     apply_q_hr,
     apply_q_hr_chunked,
@@ -29,11 +38,6 @@ from tileqr.drivers.square_hr import (
     qr_hr,
     qr_hr_chunked,
 )
-from tileqr.drivers.square_dyn import (
-    DynFactors,
-    apply_q_tiled_dyn,
-    qr_tiled_dyn,
-)
 from tileqr.drivers.tsqr import (
     TSQRFactors,
     auto_leaf_rows,
@@ -41,15 +45,14 @@ from tileqr.drivers.tsqr import (
     tsqr_factor,
     tsqr_form_q,
 )
-from tileqr.kernels.common import resolve_interpret
 
 
 class QRFactors(NamedTuple):
-    """Packed tiled-QR factors (layout: ref/blocked_qr.py docstring).
-
-    ``panels`` holds the per-panel reflector tuple for the static driver, or
-    a ``DynFactors`` flat-buffer record when the factorization ran through
-    the bounded-compile dynamic driver (QRConfig.driver="dynamic")."""
+    """Packed tiled-QR factors: the factored matrix (off-diagonal R tiles
+    in its upper triangle), the diagonal R tiles, the GEQRT T factors and
+    the per-panel reflectors: a tuple per panel from ``qr_tiled`` (layout:
+    drivers/square.py docstring), or a ``PanelStack`` from the loop driver
+    (more than ``square.STATIC_MAX_PANELS`` panels at chunk=0)."""
 
     packed: jnp.ndarray
     r_diag: jnp.ndarray
@@ -167,30 +170,10 @@ def qr_factor(a: jnp.ndarray, config: Optional[QRConfig] = None) -> QRFactors:
     if cfg.square_method == "hr":
         stats = cfg.hr_guard != "off"
         ap, _ = pad_for_hr(a, cfg.nb)
-        if cfg.resolve_driver(m, n) == "dynamic":
-            # bounded-compile twin (same policy as the hh path): the
-            # trace-unrolled qr_hr at 128 panels OOMs the XLA compile
-            # itself; the segmented driver compiles O(k_max/8) small
-            # programs. Equivalence to qr_hr is bitwise with
-            # use_kernel=False (pinned by test); at the r5 default
-            # (in-kernel HIGHEST apply) it is rounding-level only — the
-            # kernel orders the cross-block accumulation differently.
-            # b3 follows the
-            # SAME panel-count rule as "highest" since r4: both drivers run
-            # the identical Pallas panel-apply kernel (chunked in-place,
-            # static in value form), and the r4 measurement
-            # (scripts/r4_b3_routing.py) put static-b3 at 0.87x chunked's
-            # wall at 16 panels and 1.02x at 32 — the r3 "b3 always
-            # chunked" rule was asserted, not measured, below 32 panels
-            out = qr_hr_chunked(
-                ap, cfg.nb, precision=cfg.precision,
-                interpret=resolve_interpret(cfg.interpret), stats=stats,
-            )
-        else:
-            out = qr_hr(
-                ap, cfg.nb, precision=cfg.precision,
-                interpret=resolve_interpret(cfg.interpret), stats=stats,
-            )
+        # past STATIC_MAX_PANELS the panel loop runs as segmented
+        # executables with a donated carry (bitwise-equal to qr_hr)
+        drv = qr_hr_chunked if min(ap.shape) // cfg.nb > square.STATIC_MAX_PANELS else qr_hr
+        out = drv(ap, cfg.nb, precision=cfg.precision, stats=stats)
         health = out[2] if stats else None
         f = HRFactors(out[0], out[1], cfg.nb, (m, n), scale, health)
         # hr breakdown guard (QRConfig.hr_guard). The host check needs a
@@ -202,111 +185,102 @@ def qr_factor(a: jnp.ndarray, config: Optional[QRConfig] = None) -> QRFactors:
         # fall through to the hh path below: `a` is already prescaled and
         # `scale` already captured, so the fallback reuses both
     ap, _ = pad_to_tiles(a, cfg.nb)
-    if cfg.resolve_driver(m, n) == "dynamic":
-        a_out, df = qr_tiled_dyn(
-            ap, cfg.nb, ib=cfg.ib, chunk=cfg.chunk, precision=cfg.precision,
-            interpret=resolve_interpret(cfg.interpret), donate=cfg.donate,
+    if cfg.chunk == 0 and min(ap.shape) // cfg.nb > square.STATIC_MAX_PANELS:
+        # one compiled panel body per segment instead of one per panel
+        packed, r_diag, t_g, panels = qr_tiled_loop(ap, cfg.nb, precision=cfg.precision)
+    else:
+        packed, r_diag, t_g, panels = qr_tiled(
+            ap, cfg.nb, chunk=cfg.chunk, precision=cfg.precision
         )
-        return QRFactors(
-            a_out, df.r_diag, df.t_geqrt, df, cfg.nb, df.chunk, (m, n), scale
-        )
-    packed, r_diag, t_g, panels = qr_tiled(
-        ap, cfg.nb, ib=cfg.ib, chunk=cfg.chunk, precision=cfg.precision,
-        interpret=resolve_interpret(cfg.interpret),
-    )
     return QRFactors(packed, r_diag, t_g, panels, cfg.nb, cfg.chunk, (m, n), scale)
 
 
+def _check_rows(c, m: int):
+    if c.ndim != 2:
+        raise ValueError(f"c must be (M, P), got shape {c.shape}")
+    if c.shape[0] != m:
+        raise ValueError(f"c rows {c.shape[0]} != M {m}")
+
+
 def apply_q(
-    f: QRFactors, c: jnp.ndarray, trans: bool = False, config: Optional[QRConfig] = None
+    f, c: jnp.ndarray, trans: bool = False, config: Optional[QRConfig] = None
 ) -> jnp.ndarray:
-    """C ← Q C (or Qᵀ C). c: (M, P) in the ORIGINAL row dimension."""
-    cfg = _cfg(config).replace(nb=f.nb)
+    """C ← Q C (or Qᵀ C) for QRFactors, HRFactors or TSQRFactors.
+    c: (M, P) in the ORIGINAL row dimension."""
+    cfg = _cfg(config)
+    if isinstance(f, TSQRFactors):
+        c = jnp.asarray(c, dtype=f.r.dtype)
+        _check_rows(c, f.shape[0])
+        return tsqr_apply_q(f, c, trans=trans, precision=cfg.precision)
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
         c = jnp.asarray(c, dtype=f.r.dtype)
-        mc, p = c.shape
-        if mc != f.shape[0]:
-            raise ValueError(f"c rows {mc} != M {f.shape[0]}")
-        cp = jnp.pad(c, ((0, mp - mc), (0, 0)))
-        if len(f.panels) > QRConfig.AUTO_STATIC_MAX_PANELS:
-            # bounded-compile segmented apply (the trace-unrolled one grows
-            # the compile the same way the factor's did at 128 panels)
+        _check_rows(c, f.shape[0])
+        cp = jnp.pad(c, ((0, mp - c.shape[0]), (0, 0)))
+        if len(f.panels) > square.STATIC_MAX_PANELS:
+            # segmented apply (the trace-unrolled one grows the compile the
+            # same way the factor's does)
             out = apply_q_hr_chunked(
-                f.panels, cp, f.nb, trans=trans, precision=cfg.precision,
-                interpret=resolve_interpret(cfg.interpret),
+                f.panels, cp, f.nb, trans=trans, precision=cfg.precision
             )
         else:
-            out = apply_q_hr(
-                f.panels, cp, f.nb, trans=trans, precision=cfg.precision,
-                interpret=resolve_interpret(cfg.interpret),
-            )
-        return out[:mc]
+            out = apply_q_hr(f.panels, cp, f.nb, trans=trans, precision=cfg.precision)
+        return out[: c.shape[0]]
     mp = f.packed.shape[0]
     c = jnp.asarray(c, dtype=f.packed.dtype)
+    _check_rows(c, f.shape[0])
     mc, p = c.shape
-    if mc != f.shape[0]:
-        raise ValueError(f"c rows {mc} != M {f.shape[0]}")
-    pp = round_up(max(p, 1), f.nb)
-    cp = jnp.pad(c, ((0, mp - mc), (0, pp - p)))
-    if isinstance(f.panels, DynFactors):
-        out = apply_q_tiled_dyn(
-            f.panels, cp, trans=trans, precision=cfg.precision,
-            interpret=resolve_interpret(cfg.interpret),
-        )
-    else:
-        out = apply_q_tiled(
-            f.panels, f.t_geqrt, cp, f.nb, chunk=f.chunk,
-            trans=trans, precision=cfg.precision,
-            interpret=resolve_interpret(cfg.interpret),
-        )
+    cp = jnp.pad(c, ((0, mp - mc), (0, 0)))
+    drv = apply_q_loop if isinstance(f.panels, PanelStack) else apply_q_tiled
+    out = drv(f.panels, f.t_geqrt, cp, f.nb, trans=trans, precision=cfg.precision)
     return out[:mc, :p]
 
 
-def orgqr(f: QRFactors, ncols: Optional[int] = None, config: Optional[QRConfig] = None):
+def orgqr(f, ncols: Optional[int] = None, config: Optional[QRConfig] = None):
     """Form Q explicitly: M×ncols (default: reduced, ncols = min(M, N)).
 
     LAPACK xORGQR equivalent on the tiled factors (SURVEY.md §3.4). On the
-    static-driver path the apply uses the xORGQR growing-window trick
+    hh path the apply uses the xORGQR growing-window trick
     (apply_q_tiled triangular=True): panel k is an exact no-op on the
-    identity's column tiles < k, halving the Q-formation flops."""
+    identity's column tiles < k, halving the Q-formation flops. Fewer
+    columns than min(M, N) are sliced from the reduced Q, so Q's leading
+    columns are bitwise the same whatever ncols asks for."""
     cfg = _cfg(config)
     m, n = f.shape
     k = min(m, n) if ncols is None else ncols
+    kw = max(k, min(m, n))  # the width actually formed
+    if isinstance(f, TSQRFactors):
+        if k <= n:
+            # leaf-local Q assembly — no M×M identity is materialized
+            return tsqr_form_q(f, precision=cfg.precision)[:m, :k]
+        return apply_q(f, jnp.eye(m, k, dtype=f.r.dtype), config=cfg)
     if isinstance(f, HRFactors):
         mp = f.panels[0][0].shape[0]
-        if len(f.panels) > QRConfig.AUTO_STATIC_MAX_PANELS:
-            # bounded-compile Q formation: segmented full apply to a padded
-            # identity. Costs ~2× the growing-window orgqr_hr flops but
-            # compiles O(k_max/8) small programs instead of one 128-panel
-            # giant (the window trick's shape changes per panel make it a
-            # trace-unrolled monolith)
-            kp = round_up(max(k, 1), f.nb)
+        if len(f.panels) > square.STATIC_MAX_PANELS:
+            # segmented Q formation: a full apply to a padded identity
+            # (~2× the growing-window flops, but O(k_max/8) small programs
+            # instead of one trace-unrolled program)
+            kp = round_up(kw, f.nb)
             eye_p = jnp.eye(mp, kp, dtype=f.r.dtype)
             out = apply_q_hr_chunked(
-                f.panels, eye_p, f.nb, trans=False, precision=cfg.precision,
-                interpret=resolve_interpret(cfg.interpret),
+                f.panels, eye_p, f.nb, trans=False, precision=cfg.precision
             )
         else:
-            out = orgqr_hr(
-                f.panels, mp, f.nb, max(k, 1), precision=cfg.precision,
-                interpret=resolve_interpret(cfg.interpret),
-            )
+            out = orgqr_hr(f.panels, mp, f.nb, kw, precision=cfg.precision)
         return out[:m, :k]
     mp = f.packed.shape[0]
-    pp = round_up(max(k, 1), f.nb)
-    eye_p = jnp.eye(mp, pp, dtype=f.packed.dtype)
-    if isinstance(f.panels, DynFactors):
-        out = apply_q_tiled_dyn(
-            f.panels, eye_p, trans=False, precision=cfg.precision,
-            interpret=resolve_interpret(cfg.interpret), triangular=True,
+    eye_p = jnp.eye(mp, round_up(kw, f.nb), dtype=f.packed.dtype)
+    if isinstance(f.panels, PanelStack):
+        # a full apply to the identity (the growing window needs per-panel
+        # shapes)
+        out = apply_q_loop(
+            f.panels, f.t_geqrt, eye_p, f.nb, trans=False, precision=cfg.precision
         )
-    else:
-        out = apply_q_tiled(
-            f.panels, f.t_geqrt, eye_p, f.nb, chunk=f.chunk, trans=False,
-            precision=cfg.precision, interpret=resolve_interpret(cfg.interpret),
-            triangular=True,
-        )
+        return out[:m, :k]
+    out = apply_q_tiled(
+        f.panels, f.t_geqrt, eye_p, f.nb, trans=False,
+        precision=cfg.precision, triangular=True,
+    )
     return out[:m, :k]
 
 
@@ -346,56 +320,40 @@ def tsqr(
     """Communication-avoiding tall-skinny QR.
 
     a: (M, n) with n <= nb. mode "r" → R (n, n); "reduced" → (Q (M, n), R);
-    "factor" → TSQRFactors (for tsqr_apply_q).
+    "factor" → TSQRFactors (for apply_q / orgqr).
 
     strategy:
-      "tree": the TSQR/TTQRT tree reduction (reference path C8), tall
-        staged leaves + wide-arity combines (drivers/tsqr.py) — wall-clock
-        ∝ (#leaves + #combines) Householder column loops, minimized by
-        VMEM-budget-sized leaves and arity-8 levels.
-      "chain": route through the chunked square driver (one wide panel,
-        R carried in VMEM across chunk couples).
+      "tree": the TSQR/TTQRT tree reduction (reference path C8): one
+        batched Householder call over the leaves, then wide-arity combines
+        (drivers/tsqr.py).
+      "chain": route through the square driver (one wide panel).
       "cholqr2": CholeskyQR2 (drivers/cholqr.py, B=1): R via ONE gram
-        reduction + batched POTRF + matmul-only correction — no Householder
-        column loops at all, and the gram is the maximally
-        communication-avoiding cross-chip reduction (a single psum).
-        Fastest R-path on one chip (BASELINE.md r3) but requires
+        reduction + Cholesky + matmul-only correction — no Householder
+        columns at all, and the gram is the maximally communication-
+        avoiding cross-device reduction (a single psum). Requires
         cond(A) ≲ 1e3 in fp32. mode="factor" returns whole-panel compact-WY
         HRFactors via modified-LU Householder reconstruction
         (square_hr.hr_panel with nb = panel width) — apply with
         tileqr.apply_q / form Q with tileqr.orgqr.
-      "auto": mode="factor" routes to cholqr2-reconstruction — the measured
-        3.07× factor+apply path (108.4 vs the tree's 332.4 ms at
-        1048576×512, BASELINE.md r4) — with the breakdown guard falling
-        back to tree TSQRFactors (warning) under the default
-        hr_guard="fallback". Other modes: chain on compiled TPU (115.1 ms
-        vs the tree's 230.5 ms at 1048576×512, BASELINE.md — the chain's
-        single carried-R pipeline still wins on one chip; the tree is the
-        cross-chip reduction), tree in interpret mode (keeps the tree
-        covered by the CPU suite).
+      "auto": "chain" for modes "r" and "reduced" (one wide panel through
+        cuSOLVER geqrf; on one device it beats the tree, PERF.md); "factor"
+        routes to the cholqr2 reconstruction with the breakdown guard
+        falling back to tree TSQRFactors (warning) under the default
+        hr_guard="fallback".
     """
     _check_matrix(a, "tsqr")
     cfg = _cfg(config)
     if strategy not in ("auto", "tree", "chain", "cholqr2"):
         raise ValueError(f"unknown strategy {strategy!r} (auto/tree/chain/cholqr2)")
     if strategy == "auto" and mode == "factor":
-        # measured routing decision (VERDICT r4 weak-#5 / next-#4): the
-        # cholqr2-reconstruction factor path is 3.07× the tree on the full
-        # factor+apply at config 3 (108.4 vs 332.4 ms, BASELINE.md r4) and
-        # gate-grade accurate; its breakdown guard falls back to tree
-        # TSQRFactors (with a warning) under the default
-        # hr_guard="fallback", so the stable path still backstops. Before
-        # r5 auto+factor silently ran the TREE body after resolving to
-        # "chain" — the executed path now matches the resolved name.
-        # The fast route is taken ONLY when that backstop can actually
-        # act: with hr_guard "off"/"warn", or under a jax.jit trace
-        # (tracer health — guard_trips cannot host-sync and returns
-        # False), "auto" keeps the pre-r5 unconditionally stable tree.
-        # Callers who want cholqr2 speed without the guard opt in by
-        # naming strategy="cholqr2". The trace test must look at the
-        # TRACE STATE, not just the input: a concrete array captured by
-        # closure under jit is not a Tracer, but the health scalar the
-        # guard reads would still emerge as one.
+        # The fast route is taken ONLY when the guard's fallback can act:
+        # with hr_guard "off"/"warn", or under a jax.jit trace (tracer
+        # health — guard_trips cannot host-sync and returns False), "auto"
+        # keeps the unconditionally stable tree. Callers who want cholqr2
+        # without the guard opt in by naming strategy="cholqr2". The trace
+        # test must look at the TRACE STATE, not just the input: a concrete
+        # array captured by closure under jit is not a Tracer, but the
+        # health scalar the guard reads would still emerge as one.
         guard_can_act = (
             cfg.hr_guard == "fallback"
             and not isinstance(a, jax.core.Tracer)
@@ -405,42 +363,38 @@ def tsqr(
             a, mode="factor", config=cfg,
             strategy="cholqr2" if guard_can_act else "tree",
         )
+    if strategy == "auto":
+        strategy = "chain"
     if strategy == "cholqr2":
         from tileqr.drivers.cholqr import cholqr2_batched
 
+        a = jnp.asarray(a, dtype=cfg.dtype)
+        m, n = a.shape
+        stats = cfg.hr_guard != "off"
         if mode == "factor":
-            # whole-panel compact-WY factors at CholeskyQR2 speed (VERDICT
-            # r3 missing-#4): CholeskyQR2 → modified-LU Householder
-            # reconstruction — exactly square_hr.hr_panel with nb = the
-            # panel width. Returns HRFactors with ONE panel; apply_q /
-            # orgqr consume it through their existing hr route (the tree's
-            # TSQRFactors stay the unconditionally stable factor path).
-            from tileqr.drivers.square_hr import hr_panel, pad_for_hr
+            # whole-panel compact-WY factors at CholeskyQR2 speed:
+            # CholeskyQR2 → modified-LU Householder reconstruction — exactly
+            # square_hr.hr_panel with nb = the panel width. Returns
+            # HRFactors with ONE panel; apply_q / orgqr consume it through
+            # their hr route (the tree's TSQRFactors stay the
+            # unconditionally stable factor path).
+            from tileqr.drivers.square_hr import hr_panel
 
-            a = jnp.asarray(a, dtype=cfg.dtype)
-            m, n = a.shape
             if m < n:
                 raise ValueError("tsqr requires M >= n")
             nbp = round_up(max(n, 8), 8)
             ap, _ = pad_for_hr(a, nbp)
-            stats = cfg.hr_guard != "off"
-            out = hr_panel(
-                ap, resolve_interpret(cfg.interpret), stats=stats
-            )
+            out = hr_panel(ap, stats=stats)
             y, t, rk = out[0], out[1], out[2]
             health = out[3] if stats else None
             bad = _guard_trips(health, cfg, "tsqr(factor, strategy='cholqr2')")
             if bad and cfg.hr_guard == "fallback":
                 return tsqr(a, mode="factor", config=cfg, strategy="tree")
             return HRFactors(rk, ((y, t),), nbp, (m, n), 1.0, health)
-        a = jnp.asarray(a, dtype=cfg.dtype)
-        m, n = a.shape
         if mode not in ("r", "reduced"):
             raise ValueError(f"unknown mode {mode!r}")
-        stats = cfg.hr_guard != "off"
         out = cholqr2_batched(
-            a[None], mode=mode, group=1, precision=cfg.precision,
-            interpret=resolve_interpret(cfg.interpret), stats=stats,
+            a[None], mode=mode, precision=cfg.precision, stats=stats
         )
         health = out[-1] if stats else None
         if mode == "r":
@@ -449,9 +403,8 @@ def tsqr(
             res = (out[0][0], out[1][0])
         bad = _guard_trips(health, cfg, "tsqr(strategy='cholqr2')")
         if bad and cfg.hr_guard == "fallback":
-            # the chain/tree paths are unconditionally stable; re-route the
-            # same way strategy="auto" would pick for this backend
-            return tsqr(a, mode=mode, config=cfg, strategy="auto")
+            # the tree is unconditionally stable
+            return tsqr(a, mode=mode, config=cfg, strategy="tree")
         return res
     if strategy == "chain" and mode == "factor":
         # the chain path has no TSQRFactors representation — silently
@@ -459,11 +412,9 @@ def tsqr(
         # than the strategy they named
         raise ValueError(
             'tsqr(strategy="chain") has no "factor" mode; use strategy='
-            '"tree" (TSQRFactors) or qr_factor (chunked square factors)'
+            '"tree" (TSQRFactors) or qr_factor (square factors)'
         )
-    if strategy == "auto":
-        strategy = "tree" if resolve_interpret(cfg.interpret) else "chain"
-    if strategy == "chain" and mode != "factor":
+    if strategy == "chain":
         if a.shape[1] > cfg.nb:
             raise ValueError(f"tsqr requires n={a.shape[1]} <= nb={cfg.nb}")
         return qr(a, mode=mode, config=cfg)
@@ -476,7 +427,7 @@ def tsqr(
     lr = auto_leaf_rows(round_up(m, 8), np_)
     mp = round_up(m, lr)
     ap = jnp.pad(a, ((0, mp - m), (0, np_ - n)))
-    f = tsqr_factor(ap, nb, ib=cfg.ib, interpret=cfg.interpret, leaf_rows=lr)
+    f = tsqr_factor(ap, nb, leaf_rows=lr, shape=(m, n))
     r = f.r[:n, :n]
     if mode == "r":
         return r
@@ -506,9 +457,7 @@ def qr_batched(
     mp, np_ = round_up(m, 8), round_up(n, 8)
     ap = jnp.pad(a, ((0, 0), (0, mp - m), (0, np_ - n)))
     if cfg.batched_method == "cholqr2":
-        # column padding would make the gram singular — pad rows only (the
-        # gram/POTRF shapes are (n, n) and need no lane rounding beyond 8)
-        from tileqr.drivers.batched import select_group
+        # column padding would make the gram singular — pad rows only
         from tileqr.drivers.cholqr import cholqr2_batched
 
         if m < n:
@@ -516,14 +465,12 @@ def qr_batched(
         stats = cfg.hr_guard != "off"
         apc = jnp.pad(a, ((0, 0), (0, mp - m), (0, 0)))
         out = cholqr2_batched(
-            apc, mode=mode, group=select_group(b), precision=cfg.precision,
-            interpret=resolve_interpret(cfg.interpret), stats=stats,
+            apc, mode=mode, precision=cfg.precision, stats=stats
         )
         health = out[-1] if stats else None
-        # one bad member trips the whole batch to the Householder kernels —
-        # exactly the documented hazard this guards (square gaussian 128²
-        # batches contain ill-conditioned tails; a breakdown measured
-        # relerr 1e+57 in the r3 sweep, BASELINE.md)
+        # one bad member trips the whole batch to the Householder path —
+        # square gaussian 128² batches contain ill-conditioned tails whose
+        # CholeskyQR breaks down
         bad = _guard_trips(health, cfg, "qr_batched/cholqr2")
         if not (bad and cfg.hr_guard == "fallback"):
             if mode == "r":
@@ -533,10 +480,7 @@ def qr_batched(
         # fall through to the hh batched path below (cfg routing bypassed)
     elif cfg.batched_method != "hh":
         raise ValueError(f"unknown batched_method {cfg.batched_method!r}")
-    out = _qr_batched(
-        ap, mode=mode, precision=cfg.precision,
-        interpret=resolve_interpret(cfg.interpret), ib=cfg.batched_ib,
-    )
+    out = _qr_batched(ap, mode=mode, precision=cfg.precision)
     if mode == "r":
         return out[:, :n, :n]
     q, r = out

@@ -1,11 +1,10 @@
 """Tile-layout math (reference component C6, SURVEY.md §2.1).
 
 The CUDA reference stores the matrix in explicit nb×nb tiled (block) storage
-in GPU global memory with per-tile T buffers [SURVEY.md §2.1 C6]. On TPU the
-idiomatic equivalent is: keep the matrix as a single row-major (M, N) HBM
-array and let Pallas ``BlockSpec`` index maps carve nb×nb tiles on the fly —
-XLA/Mosaic pipeline the HBM→VMEM tile DMAs, so no separate tiled layout (or
-pack/unpack pass) is needed on one chip. The helpers here handle padding to
+in GPU global memory with per-tile T buffers [SURVEY.md §2.1 C6]. Here the
+matrix stays a single row-major (M, N) array and the drivers slice nb×nb
+tiles and panels out of it, so no separate tiled layout (or pack/unpack
+pass) is needed on one device. The helpers here handle padding to
 tile multiples and the block-cyclic tile→device maps used by the sharded
 driver (where an explicit tiled layout *is* used, because each device owns a
 strided subset of tiles).

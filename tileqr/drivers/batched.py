@@ -1,8 +1,7 @@
 """Batched QR path (BASELINE.json:10 config — 4096 independent 128² fp32
-matrices). Single-tile matrices (m, n <= nb) factored by ONE pallas_call with
-the batch as the grid dimension — the TPU equivalent of a batched kernel
-launch; Q is formed from the compact-WY identity Q = I − V T Vᵀ with batched
-MXU matmuls (no reflector replay needed for one tile)."""
+matrices). The whole stack is factored by one batched Householder call and
+Q is formed from the compact-WY identity Q = I − V T Vᵀ with batched
+matmuls (no reflector replay is needed for one tile)."""
 
 from __future__ import annotations
 
@@ -10,360 +9,28 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tileqr.kernels.common import (
-    acc_type,
-    resolve_interpret,
-    resolve_precision,
-    triu,
-    unit_lower,
-)
-from tileqr.kernels.geqrt import geqrt_in_refs
+from tileqr.kernels.common import dot, resolve_precision, triu, unit_lower
+from tileqr.kernels.tile_ops import geqrt
 
 
-def _batched_geqrt_kernel(a_ref, packed_ref, t_ref, at_scr, tt_scr):
-    _, m, n = a_ref.shape
-    at_scr[:] = a_ref[0].T
-    tt_scr[:] = jnp.zeros_like(tt_scr)
-    geqrt_in_refs(at_scr, tt_scr, min(m, n))
-    packed_ref[0] = at_scr[:].T
-    t_ref[0] = tt_scr[:].T
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def geqrt_batched(a, interpret: bool = False):
-    """a: (B, m, n) → (packed (B, m, n), T (B, n, n)); one grid step per
-    matrix, tile resident in VMEM."""
-    b, m, n = a.shape
-    dt = a.dtype
-    return pl.pallas_call(
-        _batched_geqrt_kernel,
-        grid=(b,),
-        in_specs=[pl.BlockSpec((1, m, n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)],
-        out_shape=(
-            jax.ShapeDtypeStruct((b, m, n), dt),
-            jax.ShapeDtypeStruct((b, n, n), dt),
-        ),
-        out_specs=(
-            pl.BlockSpec((1, m, n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n, n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((n, m), dt),
-            pltpu.VMEM((n, n), dt),
-        ],
-        interpret=interpret,
-    )(a)
-
-
-def _mk_group_kernel(ib: int, precision):
-    def kernel(a_ref, packed_ref, t_ref):
-        _, g, n, m = a_ref.shape
-        dt = a_ref.dtype
-        one = jnp.ones((), dt)
-        zero = jnp.zeros((), dt)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 1, m), 2)
-        lane_t = jax.lax.broadcasted_iota(jnp.int32, (1, 1, n), 2)
-
-        packed_ref[0] = a_ref[0]
-        t_ref[0] = jnp.zeros_like(t_ref[0])
-
-        def bdot(x, y, contract):
-            out = jax.lax.dot_general(
-                x, y, dimension_numbers=((contract), ((0,), (0,))),
-                precision=precision, preferred_element_type=acc_type(dt),
-            )
-            return out.astype(dt)
-
-        kcols = min(m, n)
-        for s in range(0, kcols, ib):
-            e = min(s + ib, kcols)
-            ibk = e - s
-            sub = jax.lax.broadcasted_iota(jnp.int32, (1, ibk, 1), 1)
-            gid = s + sub
-
-            def col_step(jj, _, s=s, e=e, ibk=ibk, sub=sub):
-                # slim loop (kernels/geqrt.py): one merged block store; T is
-                # built after the loop from the gram matrix, off this path
-                j = s + jj
-                xcol = packed_ref[0, :, pl.ds(j, 1), :]  # (G, 1, m)
-                alpha = jnp.sum(jnp.where(lane == j, xcol, zero), axis=2, keepdims=True)
-                tailsq = jnp.sum(
-                    jnp.where(lane > j, xcol * xcol, zero), axis=2, keepdims=True
-                )
-                sgn = jnp.where(alpha >= 0, one, -one)
-                nrm = jnp.sqrt(alpha * alpha + tailsq)
-                has = tailsq > 0
-                beta = jnp.where(has, -sgn * nrm, alpha)
-                tau = jnp.where(has, (beta - alpha) / beta, zero)
-                scale = jnp.where(has, 1 / (alpha - beta), zero)
-                v = jnp.where(lane == j, one, jnp.where(lane > j, xcol * scale, zero))
-                blk = packed_ref[0, :, s:e, :]  # (G, ibk, m)
-                w = jnp.sum(blk * v, axis=2, keepdims=True)
-                packed_j = jnp.where(
-                    lane == j, beta, jnp.where(lane > j, xcol * scale, xcol)
-                )
-                packed_ref[0, :, s:e, :] = jnp.where(
-                    sub == jj, packed_j, blk - jnp.where(sub > jj, tau * w, zero) * v
-                )
-                t_ref[0, :, pl.ds(j, 1), :] = jnp.where(lane_t == j, tau, zero)
-                return 0
-
-            jax.lax.fori_loop(0, ibk, col_step, 0, unroll=False)
-
-            blk_final = packed_ref[0, :, s:e, :]
-            vt_b = jnp.where(lane == gid, one, jnp.where(lane > gid, blk_final, zero))
-
-            # post-loop batched T build: gram + masked log-doubling
-            # (see kernels/geqrt.py) — T^T per group, lower-triangular
-            gmat = bdot(vt_b, vt_b, (((2,), (2,))))  # (G, ibk, ibk)
-            rows_b = jax.lax.broadcasted_iota(jnp.int32, (1, ibk, ibk), 1)
-            cols_b = jax.lax.broadcasted_iota(jnp.int32, (1, ibk, ibk), 2)
-            taus = jnp.sum(
-                jnp.where(rows_b == cols_b, t_ref[0, :, s:e, s:e], zero),
-                axis=2,
-                keepdims=True,
-            )  # (G, ibk, 1)
-            ttb = jnp.where(rows_b == cols_b, taus, zero)
-            bsz = 1
-            while bsz < ibk:
-                msk = ((cols_b // bsz) % 2 == 0) & (rows_b // bsz == cols_b // bsz + 1)
-                gm = jnp.where(msk, gmat, zero)
-                ttb = ttb - bdot(ttb, bdot(gm, ttb, (((2,), (1,)))), (((2,), (1,))))
-                bsz *= 2
-            t_ref[0, :, s:e, s:e] = ttb
-            tt_bb = ttb
-            if e < n:
-                at_rest = packed_ref[0, :, e:, :]
-                w1 = bdot(at_rest, vt_b, (((2,), (2,))))
-                w2 = bdot(w1, tt_bb, (((2,), (2,))))
-                packed_ref[0, :, e:, :] = at_rest - bdot(w2, vt_b, (((2,), (1,))))
-            if s > 0:
-                sub_p = jax.lax.broadcasted_iota(jnp.int32, (1, s, 1), 1)
-                vt_prev = jnp.where(
-                    lane == sub_p, one,
-                    jnp.where(lane > sub_p, packed_ref[0, :, 0:s, :], zero),
-                )
-                zt = bdot(vt_b, vt_prev, (((2,), (2,))))  # (G, ibk, s)
-                m2 = bdot(zt, t_ref[0, :, 0:s, 0:s], (((2,), (1,))))  # (G, ibk, s)
-                t_ref[0, :, s:e, 0:s] = -bdot(tt_bb, m2, (((2,), (1,))))
-
-    return kernel
-
-
-def _geqrt_batched_grouped_t(a, group, ib, precision, interpret):
-    """Grouped kernel returning TRANSPOSED-layout outputs (packedᵀ (B, n, m),
-    Tᵀ (B, n, n)) — the kernel's native layout; qr_batched consumes these
-    directly so Q/R formation pays no 256 MB un-transpose passes."""
-    b, m, n = a.shape
-    if b % group:
-        raise ValueError(f"batch {b} not divisible by group {group}")
-    dt = a.dtype
-    ng = b // group
-    at = a.transpose(0, 2, 1).reshape(ng, group, n, m)
-    prec = resolve_precision(precision)
-    packed_t, t_t = pl.pallas_call(
-        _mk_group_kernel(ib, prec),
-        grid=(ng,),
-        in_specs=[
-            pl.BlockSpec((1, group, n, m), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM)
-        ],
-        out_shape=(
-            jax.ShapeDtypeStruct((ng, group, n, m), dt),
-            jax.ShapeDtypeStruct((ng, group, n, n), dt),
-        ),
-        out_specs=(
-            pl.BlockSpec((1, group, n, m), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, group, n, n), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(at)
-    return packed_t.reshape(b, n, m), t_t.reshape(b, n, n)
-
-
-@functools.partial(jax.jit, static_argnames=("group", "ib", "precision", "interpret"))
-def geqrt_batched_grouped(
-    a, group: int = 16, ib: int = 32, precision: str = "highest", interpret: bool = False
-):
-    """Batched GEQRT with ``group`` matrices per grid step, batch along the
-    kernel's leading dim: per-column latency (the cost that serializes the
-    per-matrix grid path) is amortized group×, and the ib-block reflector
-    applies run as batched MXU contractions. Works on the transposed batch
-    so no per-column lane indexing occurs.
-
-    a: (B, m, n), B % group == 0 → (packed (B, m, n), T (B, n, n)).
-    """
-    packed_t, t_t = _geqrt_batched_grouped_t(a, group, ib, precision, interpret)
-    return packed_t.transpose(0, 2, 1), t_t.transpose(0, 2, 1)
-
-
-@functools.partial(jax.jit, static_argnames=("ib", "precision"))
-def geqrt_batched_vec(a, ib: int = 32, precision: str = "highest"):
-    """Batch-vectorized GEQRT (pure XLA, no Pallas): the Householder column
-    recurrence runs once with every per-column op batched over B — the
-    per-column serial latency (which makes the per-matrix grid path
-    latency-bound) is amortized across the whole batch, and the ib-block
-    reflector applies become batched MXU matmuls.
-
-    a: (B, m, n) → (packed (B, m, n), T (B, n, n)). Same contract as
-    geqrt_batched.
-    """
-    from tileqr.kernels.common import resolve_precision
-
-    prec = resolve_precision(precision)
-    b, m, n = a.shape
-    dt = a.dtype
-    kcols = min(m, n)
-    one = jnp.ones((), dt)
-    zero = jnp.zeros((), dt)
-
-    def ee(spec, x, y):
-        return jnp.einsum(spec, x, y, precision=prec, preferred_element_type=acc_type(dt)).astype(dt)
-
-    # transposed batch layout (B, n, m): columns live along sublanes, matrix
-    # rows along lanes — per-column slicing/updates never index the lane
-    # dimension (the row-major form costs a lane gather per column)
-    at = a.transpose(0, 2, 1)
-    lane_r = jnp.arange(m)[None, :]  # (1, m) row ids
-    tt = jnp.zeros((b, n, n), dt)  # Tᵀ per batch: row j = column j of T
-    vt = jnp.zeros((b, n, m), dt)  # Vᵀ per batch: row j = reflector v_j
-
-    for s in range(0, kcols, ib):
-        e = min(s + ib, kcols)
-        ibk = e - s
-        for jj in range(ibk):
-            j = s + jj
-            col = at[:, j, :]  # (B, m) — column j of each matrix
-            alpha = col[:, j]  # (B,)
-            tail = jnp.where(lane_r > j, col, zero)
-            tailsq = jnp.sum(tail * tail, axis=1)
-            sgn = jnp.where(alpha >= 0, one, -one)
-            nrm = jnp.sqrt(alpha * alpha + tailsq)
-            has = tailsq > 0
-            beta = jnp.where(has, -sgn * nrm, alpha)
-            tau = jnp.where(has, (beta - alpha) / beta, zero)
-            scale = jnp.where(has, 1 / (alpha - beta), zero)
-            v = jnp.where(
-                lane_r == j, one, jnp.where(lane_r > j, col * scale[:, None], zero)
-            )  # (B, m)
-            if j + 1 < e:
-                blk = at[:, j + 1 : e, :]  # (B, w, m)
-                wv = ee("bm,bwm->bw", v, blk)
-                at = at.at[:, j + 1 : e, :].add(
-                    -(tau[:, None] * wv)[:, :, None] * v[:, None, :]
-                )
-            newcol = jnp.where(
-                lane_r == j,
-                beta[:, None],
-                jnp.where(lane_r > j, col * scale[:, None], col),
-            )
-            at = at.at[:, j, :].set(newcol)
-            # block-local T column (vt rows >= jj of the block still zero)
-            z = ee("bim,bm->bi", vt[:, s:e, :], v)  # (B, ibk)
-            # tt block rows = T[r, s+l] over all lanes r → block matvec lands
-            # at the right global positions (same trick as the kernel)
-            y = ee("bin,bi->bn", tt[:, s:e, :], z)  # (B, n)
-            lane_t = jnp.arange(n)[None, :]
-            trow = jnp.where(
-                lane_t == j,
-                tau[:, None],
-                jnp.where((lane_t >= s) & (lane_t < j), -tau[:, None] * y, zero),
-            )
-            tt = tt.at[:, j, :].set(trow)
-            vt = vt.at[:, j, :].set(v)
-        vb = vt[:, s:e, :]  # (B, ibk, m)
-        tbt = tt[:, s:e, s:e]  # (B, ibk, ibk) = T_bᵀ
-        if e < n:
-            rest = at[:, e:, :]  # (B, n_rest, m)
-            w1 = ee("brm,bim->bri", rest, vb)  # (V_bᵀ A_rest)ᵀ
-            w2 = ee("bri,bji->brj", w1, tbt)  # hold (T_bᵀ V_bᵀ A_rest)ᵀ
-            at = at.at[:, e:, :].add(-ee("brj,bjm->brm", w2, vb))
-        if s > 0:
-            zt = ee("bim,bpm->bip", vb, vt[:, :s, :])  # V_bᵀ V1 (ibk, s)
-            m2 = ee("bip,bpq->biq", zt, tt[:, :s, :s])  # · T1ᵀ
-            tt = tt.at[:, s:e, :s].set(-ee("bji,biq->bjq", tbt, m2))
-    return at.transpose(0, 2, 1), tt.transpose(0, 2, 1)
-
-
-def select_group(batch: int, cap: int = 16) -> int:
-    """Kernel-selection policy shared with the bench harness: the largest
-    power-of-2 group <= cap dividing the batch; 1 means the vec fallback."""
-    group = cap
-    while group > 1 and batch % group:
-        group //= 2
-    return group
-
-
-@functools.partial(
-    jax.jit, static_argnames=("mode", "precision", "interpret", "ib")
-)
-def qr_batched(
-    a: jnp.ndarray,
-    mode: str = "reduced",
-    precision: str = "highest",
-    interpret: bool | None = None,
-    ib: int = 32,
-):
-    """Batched QR of (B, m, n) single-tile matrices (m <= 512 recommended).
+@functools.partial(jax.jit, static_argnames=("mode", "precision"))
+def qr_batched(a: jnp.ndarray, mode: str = "reduced", precision: str = "highest"):
+    """Batched QR of a (B, m, n) stack of small matrices, m >= n, through
+    one batched geqrf (kernels/tile_ops.geqrt).
 
     mode: "reduced" → (Q (B, m, n), R (B, n, n)); "r" → R only.
-    ib: inner reflector-block width (QRConfig.batched_ib; measured optimum
-    32 at the config-4 shape, BASELINE.md r2 batched sweep).
     """
     prec = resolve_precision(precision)
     b, m, n = a.shape
-    dt = a.dtype
     if n > m:
         raise ValueError("qr_batched requires m >= n")
-    # grouped kernel (group matrices per grid step) amortizes the serial
-    # column latency; fall back per divisibility (group must divide B)
-    interp = resolve_interpret(interpret)
-    group = select_group(b)
-
-    def eye_mn():
-        return (
-            jax.lax.broadcasted_iota(jnp.int32, (m, n), 0)
-            == jax.lax.broadcasted_iota(jnp.int32, (m, n), 1)
-        ).astype(dt)
-
-    if group > 1:
-        # consume the kernel's TRANSPOSED-layout outputs directly: R and Q
-        # form via layout-aware contractions, skipping two full-batch
-        # un-transpose passes (256 MB each at the config-4 shape)
-        pt, tt_ = _geqrt_batched_grouped_t(a, group, ib, precision, interp)
-        r = jax.vmap(triu)(jnp.matrix_transpose(pt[:, :, :n]))
-        if mode == "r":
-            return r
-        rows_j = jax.lax.broadcasted_iota(jnp.int32, (1, n, 1), 1)
-        lane_r = jax.lax.broadcasted_iota(jnp.int32, (1, 1, m), 2)
-        one = jnp.ones((), dt)
-        zero = jnp.zeros((), dt)
-        # vt[b, j, r] = V[r, j] (unit-lower in transposed form)
-        vt = jnp.where(lane_r == rows_j, one, jnp.where(lane_r > rows_j, pt, zero))
-
-        def ee(spec, x, y):
-            return jnp.einsum(
-                spec, x, y, precision=prec, preferred_element_type=acc_type(dt)
-            ).astype(dt)
-
-        # Q = E − V T V₁ᵀ with T[j, i] = ttᵀ: X[b,j,c] = Σᵢ T[j,i] V[c,i]
-        x = ee("bij,bic->bjc", tt_, vt[:, :, :n])
-        q = -ee("bjr,bjc->brc", vt, x) + eye_mn()[None]
-        return q, r
-
-    packed, t = geqrt_batched_vec(a, ib=ib, precision=precision)
-    r = jax.vmap(lambda p: triu(p[:n, :]))(packed)
+    packed, t = geqrt(a, prec)
+    r = triu(packed[:, :n, :])
     if mode == "r":
         return r
-
-    def form_q(p, tm):
-        v = unit_lower(p)  # (m, n)
-        # reduced Q = (I − V T Vᵀ)[:, :n] = E_n − V T (Vᵀ E_n) = E_n − V T V₁ᵀ
-        w = jnp.dot(tm, v[:n, :].T, precision=prec, preferred_element_type=acc_type(dt))
-        q = -jnp.dot(v, w.astype(dt), precision=prec, preferred_element_type=acc_type(dt))
-        return q.astype(dt) + eye_mn()
-
-    q = jax.vmap(form_q)(packed, t)
-    return q, r
+    # reduced Q = (I − V T Vᵀ)[:, :n] = E_n − V (T V₁ᵀ)
+    v = unit_lower(packed)
+    x = dot(t, jnp.swapaxes(v[:, :n, :], 1, 2), prec)
+    eye = jnp.eye(m, n, dtype=a.dtype)
+    return eye - dot(v, x, prec), r

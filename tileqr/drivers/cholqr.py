@@ -1,24 +1,14 @@
-"""Batched CholeskyQR2 (VERDICT r2 next-#6: the TPU-native answer to XLA's
-loop-lowered `jnp.linalg.cholesky`/`triangular_solve`, which killed the r2
-CholeskyQR attempt at 317 ms + NaNs).
+"""Batched CholeskyQR2: QR of a (B, m, n) stack with matmuls and one
+Cholesky per matrix.
 
-Pipeline for a (B, m, n) batch (config 4: 4096 × 128², BASELINE.json:10):
+Pipeline:
 
-  1. G = AᵀA              — batched MXU gram (HIGHEST).
-  2. R1 = potrf(G)        — THE one serial kernel: a grouped Pallas blocked
-     right-looking Cholesky. The unblocked-panel variant factors bp rows at
-     a time over FULL lanes, so the panel TRSM is free (each row is scaled
-     at its own step and rank-1-updated by the steps before it — diag
-     factorization and triangular solve in one sweep), and the trailing
-     SYRK is one masked MXU contraction per block. The trailing matrix is
-     kept SYMMETRIC (the rank-1 update is applied to both mirror halves) so
-     the per-step "column of factors" is a lane-masked extract instead of a
-     transpose.
+  1. G = AᵀA              — batched gram (HIGHEST, pairwise accumulation).
+  2. R1 = potrf(G)        — the one serial step (cuSOLVER ``potrf``).
   3. S1 ≈ R1⁻¹            — log-doubling triangular inverse: R = D(I+N)
      with N strictly upper ⇒ (I+N)⁻¹ = Π (I + (−N)^(2^i)), 2·log2(n)
-     batched matmuls, NO serial substitution. DEFAULT precision: S1 only
-     needs to make Q1 well-conditioned, not accurate.
-  4. Q1 = A·S1            — DEFAULT-precision matmul.
+     batched matmuls, NO serial substitution.
+  4. Q1 = A·S1            — HIGHEST matmul.
   5. Orthogonality correction (replaces CholeskyQR2's SECOND Cholesky with
      matmuls): G2 = Q1ᵀQ1 = I + E with ‖E‖ small; the Cholesky factor of
      I + E is I + U with U = up(E − UᵀU) (up = strict upper + half diag),
@@ -29,9 +19,8 @@ Pipeline for a (B, m, n) batch (config 4: 4096 × 128², BASELINE.json:10):
      is governed by Q's orthogonality alone, which step 5 pins at fp32.
 
 Caveat (documented CholeskyQR territory): step 2 requires cond(A)² · eps to
-be comfortably < 1 (cond(A) ≲ 1e3 in fp32). The acceptance batch (random
-Gaussian 128²) is far inside that region; ill-conditioned batches should
-use the Householder path (`method="hh"`), which is unconditionally stable.
+be comfortably < 1 (cond(A) ≲ 1e3 in fp32). Ill-conditioned inputs should
+use the Householder paths, which are unconditionally stable.
 """
 
 from __future__ import annotations
@@ -40,10 +29,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tileqr.kernels.common import acc_type, resolve_interpret, resolve_precision
+from tileqr.kernels.common import acc_type, bdot_pair_rows, resolve_precision
 
 
 def _bdot(x, y, contract, precision, dt):
@@ -52,46 +38,6 @@ def _bdot(x, y, contract, precision, dt):
         precision=precision, preferred_element_type=acc_type(dt),
     )
     return out.astype(dt)
-
-
-def bdot_pair_rows(x, y, precision, dt, blk: int = 512, cap_bytes: int = 1 << 28):
-    """xᵀ·y contracting the ROW dim of (B, m, p) × (B, m, q) → (B, p, q)
-    with PAIRWISE (binary-tree) block accumulation: block partials from one
-    batched matmul, tree-summed in the accumulation dtype. A single fp32
-    contraction accumulates the m terms sequentially (error ~ √m·eps — the
-    measured √m backward-error growth of the hr/CholeskyQR paths,
-    BASELINE.md r3 pairwise probe: 7.4e-07 → 3.3e-07 at 8192² with this in
-    all tall-contraction sites); the tree form's error is ~ √(blk + log m)·
-    eps. nblk is capped so the materialized partials stay under
-    ``cap_bytes`` (very tall inputs take proportionally taller blocks —
-    config 3's 2²⁰ rows land at nblk=256, blk=4096)."""
-    b, m, p = x.shape
-    q = y.shape[2]
-    itemsize = 8 if acc_type(dt) == jnp.float64 else 4
-    nblk = min(m // blk, max(1, cap_bytes // max(1, b * p * q * itemsize)))
-    if nblk < 2:
-        return _bdot(x, y, ((1,), (1,)), precision, dt)
-    be = (m // nblk) // 8 * 8
-    body = nblk * be
-    px = x[:, :body].reshape(b, nblk, be, p)
-    py = y[:, :body].reshape(b, nblk, be, q)
-    parts = jax.lax.dot_general(
-        px, py, (((2,), (2,)), ((0, 1), (0, 1))),
-        precision=precision, preferred_element_type=acc_type(dt),
-    )  # (B, nblk, p, q)
-    if body < m:
-        tail = jax.lax.dot_general(
-            x[:, body:], y[:, body:], (((1,), (1,)), ((0,), (0,))),
-            precision=precision, preferred_element_type=acc_type(dt),
-        )
-        parts = jnp.concatenate([parts, tail[:, None]], axis=1)
-    while parts.shape[1] > 1:
-        n2 = parts.shape[1] // 2
-        s = parts[:, 0 : 2 * n2 : 2] + parts[:, 1 : 2 * n2 : 2]
-        if parts.shape[1] % 2:
-            s = jnp.concatenate([s, parts[:, 2 * n2 :]], axis=1)
-        parts = s
-    return parts[:, 0].astype(dt)
 
 
 def guard_trips(health, cfg, where: str) -> bool:
@@ -122,166 +68,13 @@ def guard_trips(health, cfg, where: str) -> bool:
     return True
 
 
-def _mk_potrf_kernel(bp: int, precision):
-    def kernel(g_ref, r_ref):
-        _, g, n, _n2 = g_ref.shape
-        dt = g_ref.dtype
-        zero = jnp.zeros((), dt)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, 1, n), 2)
-
-        r_ref[0] = g_ref[0]
-
-        for s in range(0, n, bp):
-            e = min(s + bp, n)
-            bpe = e - s
-            lane_b = jax.lax.broadcasted_iota(jnp.int32, (1, bpe, n), 2)
-            sub_b = jax.lax.broadcasted_iota(jnp.int32, (1, bpe, 1), 1)
-
-            def row_step(jj, _, s=s, e=e, lane_b=lane_b, sub_b=sub_b):
-                j = s + jj
-                slab = r_ref[0, :, s:e, :]  # (G, bp, n) symmetric trailing
-                # column of factors (mirror symmetry: lane j == row j)
-                colv = jnp.sum(
-                    jnp.where(lane_b == j, slab, zero), axis=2, keepdims=True
-                )  # (G, bp, 1) = trailing[s+i, j]
-                rowv = jnp.sum(
-                    jnp.where(sub_b == jj, slab, zero), axis=1, keepdims=True
-                )  # (G, 1, n) = trailing[j, :]
-                d2 = jnp.sum(
-                    jnp.where(lane == j, rowv, zero), axis=2, keepdims=True
-                )  # (G, 1, 1)
-                rinv = jax.lax.rsqrt(jnp.maximum(d2, jnp.asarray(1e-30, dt)))
-                row_scaled = rowv * rinv  # final R row j on lanes >= j
-                # rank-1 trailing update on rows > j (both mirror halves)
-                upd = (colv * rinv) * row_scaled
-                new = jnp.where(
-                    (sub_b > jj) & (lane_b > j), slab - upd, slab
-                )
-                # write final row j (zeros left of the diagonal)
-                new = jnp.where(
-                    sub_b == jj,
-                    jnp.where(lane_b >= j, row_scaled, zero),
-                    new,
-                )
-                r_ref[0, :, s:e, :] = new
-                return 0
-
-            jax.lax.fori_loop(0, bpe, row_step, 0, unroll=False)
-
-            if e < n:
-                # SYRK: trailing[e:, e:] -= R12ᵀ R12 (one MXU contraction;
-                # R12 = block rows, lanes >= e). Mirror halves both updated
-                # via the symmetric mask.
-                r12 = jnp.where(lane_b >= e, r_ref[0, :, s:e, :], zero)
-                r12t = jnp.swapaxes(r12, 1, 2)  # (G, n, bp)
-                upd = _bdot(r12t, r12, ((2,), (1,)), precision, dt)  # (G,n,n)
-                sub_f = jax.lax.broadcasted_iota(jnp.int32, (1, n, 1), 1)
-                lane_f = jax.lax.broadcasted_iota(jnp.int32, (1, 1, n), 2)
-                r_ref[0] = jnp.where(
-                    (sub_f >= e) & (lane_f >= e), r_ref[0] - upd, r_ref[0]
-                )
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("group", "bp", "precision", "interpret")
-)
-def potrf_batched(
-    g_mat, group: int = 16, bp: int = 16,
-    precision: str = "highest", interpret: bool | None = None,
-):
-    """Batched upper Cholesky: g_mat (B, n, n) SPD → R (B, n, n) upper with
-    RᵀR = G. Grouped Pallas kernel; ``group`` matrices per grid step."""
-    interpret = resolve_interpret(interpret)
-    b, n, _ = g_mat.shape
-    if b % group:
-        raise ValueError(f"batch {b} not divisible by group {group}")
-    dt = g_mat.dtype
-    ng = b // group
-    prec = resolve_precision(precision)
-    r = pl.pallas_call(
-        _mk_potrf_kernel(bp, prec),
-        grid=(ng,),
-        in_specs=[
-            pl.BlockSpec((1, group, n, n), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM)
-        ],
-        out_shape=jax.ShapeDtypeStruct((ng, group, n, n), dt),
-        out_specs=pl.BlockSpec((1, group, n, n), lambda i: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(g_mat.reshape(ng, group, n, n))
-    return r.reshape(b, n, n)
-
-
-def _chol_leaf_xla(g, precision):
-    """Serial right-looking Cholesky on a small (B, l, l) leaf, statically
-    unrolled: l steps of rsqrt + scaled-row extract + batched rank-1. Pure
-    XLA — the batch dimension gives every step MXU/VPU-scale width."""
-    b, l, _ = g.shape
-    dt = g.dtype
-    lanes = jnp.arange(l)
-    rows = []
-    for j in range(l):
-        d = jax.lax.rsqrt(jnp.maximum(g[:, j, j], jnp.asarray(1e-30, dt)))
-        row = g[:, j, :] * d[:, None]
-        row = jnp.where(lanes >= j, row, jnp.zeros_like(row))
-        rows.append(row)
-        if j + 1 < l:
-            g = g - row[:, None, :] * row[:, :, None]
-    return jnp.stack(rows, axis=1)
-
-
-def potrf_batched_xla(g_mat, leaf: int = 16, precision="highest"):
-    """Batched upper Cholesky, pure XLA (no Pallas): binary recursion
-    chol(G) = [R11, R11⁻ᵀG12; 0, chol(G22 − R12ᵀR12)] down to a
-    ``leaf``-wide serial base case; the triangular solve uses the
-    log-doubling inverse (matmuls only). Measured 6× faster than the
-    grouped Pallas serial kernel at the config-4 shape (BASELINE.md r3):
-    the per-column masked extract/update ops are op-issue-latency-bound in
-    a kernel, while XLA fuses the batched leaf steps.
-
-    n must be a multiple of ``leaf`` times a power of two (the config-4
-    n = 128 = 16·8 is); other sizes fall back to one serial leaf."""
-    prec = resolve_precision(precision) if isinstance(precision, str) else precision
-    b, n, _ = g_mat.shape
-    dt = g_mat.dtype
-
-    def chol(g):
-        k = g.shape[-1]
-        if k <= leaf or k % 2:
-            return _chol_leaf_xla(g, prec)
-        h = k // 2
-        r11 = chol(g[:, :h, :h])
-        r11_inv = _triu_inv_doubling(r11, prec)
-        # R12 = R11⁻ᵀ G12 (contract the row index of R11⁻¹)
-        r12 = _bdot(r11_inv, g[:, :h, h:], ((1,), (1,)), prec, dt)
-        g22 = g[:, h:, h:] - _bdot(r12, r12, ((1,), (1,)), prec, dt)
-        r22 = chol(g22)
-        top = jnp.concatenate([r11, r12], axis=2)
-        bot = jnp.concatenate([jnp.zeros_like(r12).transpose(0, 2, 1), r22], axis=2)
-        return jnp.concatenate([top, bot], axis=1)
-
-    return chol(g_mat)
-
-
-def _diag_of(r):
-    """(B, n) diagonal via masked reduce — `r[:, idx, idx]` lowers to a TPU
-    gather that costs more than ALL the inverse's matmuls combined
-    (measured 30 ms vs ~7 ms of matmuls at config 4, BASELINE.md r3)."""
-    n = r.shape[-1]
-    eye = jnp.eye(n, dtype=r.dtype)
-    return jnp.sum(r * eye, axis=2)
-
-
 def _inv_factors(r, precision):
     """R = D(I+N) with N strictly upper nilpotent: yields (dinv, [X, X²,
     X⁴, …]) such that R⁻¹ = (I+X)(I+X²)(I+X⁴)… D⁻¹ with X = −N (the
     geometric-series factorization Σ X^k = Π (I + X^(2^i)))."""
     b, n, _ = r.shape
     dt = r.dtype
-    dinv = 1.0 / _diag_of(r)
+    dinv = 1.0 / jnp.diagonal(r, axis1=1, axis2=2)
     eye = jnp.eye(n, dtype=dt)
     x = eye - r * dinv[:, :, None]  # = −N, strictly upper
     pows = [x]
@@ -317,27 +110,31 @@ def _up_half(e):
     )
 
 
+def potrf(g_mat):
+    """Batched upper Cholesky of (B, n, n) grams through
+    ``lax.linalg.cholesky`` (cuSOLVER potrf/potrfBatched on the GPU, LAPACK
+    on the CPU). A breakdown yields NaN, which the CholeskyQR breakdown
+    guard reads as tripped."""
+    low = jax.lax.linalg.cholesky(
+        g_mat.astype(acc_type(g_mat.dtype)), symmetrize_input=False
+    )
+    return jnp.swapaxes(low, -1, -2).astype(g_mat.dtype)
+
+
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "group", "bp", "precision", "interpret",
-                     "correction_iters", "potrf_impl", "stats"),
+    static_argnames=("mode", "precision", "correction_iters", "stats"),
 )
 def cholqr2_batched(
     a,
     mode: str = "reduced",
-    group: int = 16,
-    bp: int = 16,
     precision: str = "highest",
-    interpret: bool | None = None,
     correction_iters: int = 2,
-    potrf_impl: str = "pallas",
     stats: bool = False,
 ):
     """Batched CholeskyQR2: a (B, m, n), m >= n → (Q (B, m, n), R (B, n, n))
     or R only (mode="r"). See module docstring for the pipeline and the
-    conditioning caveat. potrf_impl: "pallas" (grouped serial kernel,
-    11.2 ms chained at config 4 — the measured default) or "xla"
-    (recursive blocked; more small-op chain overhead, 21.6 ms).
+    conditioning caveat.
 
     stats=True appends ``emax`` = max over the batch of ‖Q₁ᵀQ₁ − I‖_max —
     the round-1 orthogonality defect, ≈ cond(A)²·eps. This is the natural
@@ -347,36 +144,23 @@ def cholqr2_batched(
     breakdown (clamped/NaN pivot) sends ‖E‖ → huge/NaN. The reduce reuses
     the already-computed E — no extra passes over A. Scalar is emitted with
     NaN-propagating max so a NaN anywhere trips a `<= tau` gate."""
-    interp = resolve_interpret(interpret)
     b, m, n = a.shape
     dt = a.dtype
     hi = resolve_precision(precision)
     eye = jnp.eye(n, dtype=dt)
 
     # Tall contractions (gram, Q1 gram, final R) accumulate PAIRWISE: the
-    # sequential fp32 accumulation over m rows is where the hr/CholeskyQR
-    # paths' measured √m backward-error growth lives (BASELINE.md r3
-    # pairwise probe — V1 panel grams alone: 7.4e-07 → 6.8e-07 at 8192²).
-    # Short batches (config 4's m=128) fall back to the plain contraction
-    # inside bdot_pair_rows, so the batched path is unchanged.
-    g = bdot_pair_rows(a, a, hi, dt)  # (B, n, n) gram
-    if potrf_impl == "xla":
-        r1 = potrf_batched_xla(g, precision=precision)
-    else:
-        # clamp the group to a divisor of the batch (arbitrary B support)
-        ge = min(group, b)
-        while b % ge:
-            ge -= 1
-        r1 = potrf_batched(g, group=ge, bp=bp, precision=precision,
-                           interpret=interp)
-    # Q1 = A R1⁻¹ at FULL precision: a single bf16-DEFAULT pass here leaves
-    # a ~2e-3 out-of-span component in Q1 that the orthogonality correction
-    # cannot remove (it rotates within span(Q1)) — measured residual 1.7e-3
-    # on TPU vs 2e-7 with HIGHEST (BASELINE.md r3; invisible on CPU, where
-    # DEFAULT is full fp32). Shape-dependent application: folding the
-    # doubling factors into A saves the inverse-build matmuls when m ≈ n;
-    # TALL a builds S1 = R1⁻¹ explicitly (small n×n matmuls) and touches
-    # the big matrix exactly once.
+    # sequential fp32 accumulation over m rows is where the CholeskyQR
+    # paths' √m backward-error growth lives. Short matrices (m < 1024) fall
+    # back to the plain contraction inside bdot_pair_rows.
+    g = bdot_pair_rows(a, a, hi)  # (B, n, n) gram
+    r1 = potrf(g)
+    # Q1 = A R1⁻¹ at FULL precision: a reduced-precision pass here leaves an
+    # out-of-span component in Q1 that the orthogonality correction cannot
+    # remove (it rotates within span(Q1)). Shape-dependent application:
+    # folding the doubling factors into A saves the inverse-build matmuls
+    # when m ≈ n; TALL a builds S1 = R1⁻¹ explicitly (small n×n matmuls)
+    # and touches the big matrix exactly once.
     if m > 2 * n:
         s1 = _triu_inv_doubling(r1, hi)
         q1 = _bdot(a, s1, ((2,), (1,)), hi, dt)
@@ -385,14 +169,11 @@ def cholqr2_batched(
         q1 = _apply_rinv(a, dinv, pows, hi)
 
     # matmul-only second round: chol(I+E) = I + U, U = up(E - UᵀU) iterated
-    e = bdot_pair_rows(q1, q1, hi, dt) - eye
+    e = bdot_pair_rows(q1, q1, hi) - eye
     if stats:
-        # jnp.max is NaN-propagating (unlike lax.max's ordered variants via
-        # reduce_max? it is reduce with max — NaN propagates on TPU); make
-        # it explicit: a NaN in E must yield emax=NaN
-        ae = jnp.abs(e)
+        # a NaN in E must yield emax=NaN, whatever the max reduction does
         emax = jnp.where(
-            jnp.any(jnp.isnan(e)), jnp.asarray(jnp.nan, dt), jnp.max(ae)
+            jnp.any(jnp.isnan(e)), jnp.asarray(jnp.nan, dt), jnp.max(jnp.abs(e))
         )
     u = _up_half(e)
     for _ in range(correction_iters):
@@ -405,7 +186,7 @@ def cholqr2_batched(
     q = _bdot(q1, w, ((2,), (1,)), hi, dt)
 
     # final R from the corrected Q: residual rides Q's orthogonality only
-    r = bdot_pair_rows(q, a, hi, dt)
+    r = bdot_pair_rows(q, a, hi)
     rows = jax.lax.broadcasted_iota(jnp.int32, (1, n, n), 1)
     cols = jax.lax.broadcasted_iota(jnp.int32, (1, n, n), 2)
     r = jnp.where(rows <= cols, r, jnp.zeros_like(r))

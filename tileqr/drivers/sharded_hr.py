@@ -2,20 +2,18 @@
 reconstruction over the mesh (``QRConfig(square_method="hr")`` routed through
 ``qr_sharded``).
 
-Rationale. The Householder sharded drivers (drivers/sharded.py,
-drivers/sharded_dyn.py) reduce each panel with a TTQRT tree across mesh
-rows: log2(pr) R-tile ppermute exchanges at factor time plus log2(pr)
-full-width strip PAIR exchanges (both directions) at update time, and the
-local panel work is the latency-bound Householder column loop. This driver
-is the communication-minimal alternative, the same move that won config 3
-(BASELINE.md r3: "the gram IS the communication-optimal cross-chip
-reduction — Σ RᵢᵀRᵢ = AᵀA is what the whole TTQRT tree computes"), now
-applied per panel of a square/rectangular factorization:
+Rationale. The Householder sharded driver (drivers/sharded.py) reduces each
+panel with a TTQRT tree across mesh rows: log2(pr) R-tile ppermute
+exchanges at factor time plus log2(pr) full-width strip PAIR exchanges
+(both directions) at update time. This driver is the communication-minimal
+alternative — the gram is the communication-optimal cross-device reduction
+(Σ RᵢᵀRᵢ = AᵀA is what the whole TTQRT tree computes) — applied per panel
+of a square/rectangular factorization:
 
   1. panel column broadcast along 'cols' (masked psum, as the HH drivers);
   2. distributed CholeskyQR2: G = psum_rows(PᵀP) (one nb² collective),
-     POTRF + triangular inverse REPLICATED (nb³ matmul-only work,
-     drivers/cholqr.py kernels), Q local; the orthogonality-correction
+     POTRF + triangular inverse REPLICATED (nb³ work, drivers/cholqr.py),
+     Q local; the orthogonality-correction
      round costs one more nb² psum;
   3. Householder reconstruction (kernels/modlu.py, as drivers/square_hr.py):
      the diagonal owner's top block is psum-broadcast (nb²), modified LU +
@@ -23,12 +21,11 @@ applied per panel of a square/rectangular factorization:
      whole-panel compact-WY factors with NO per-column work anywhere;
   4. trailing update C ← C − Y·(Tᵀ·(Yᵀ·C)): one psum_rows of the nb-row
      projection W = YᵀC (the only full-width collective — vs the HH strip
-     tree's 2·log2(pr) strip hops), two local MXU matmuls at the configured
-     precision ("b3" supported).
+     tree's 2·log2(pr) strip hops), two local GEMMs at the configured
+     precision.
 
 Per-panel cross-chip traffic: 1 column psum + 3 nb² psums + 1 nb-row-strip
-psum. No ppermute, no lax.switch rotation branches, no dynamic-grid Pallas:
-every shape is k-independent within a segment (window expressed as a row
+psum. No ppermute, no lax.switch rotation branches: every shape is k-independent within a segment (window expressed as a row
 mask), so ``lax.fori_loop`` compiles ONE executable for any panel count —
 bounded compile for free.
 
@@ -48,12 +45,12 @@ Householder sharded drivers.
 
 Reference mapping: the reference is single-GPU (SURVEY.md §2.3); this is a
 build-side extension of the BASELINE.json:5 "Add … 2D block-cyclic
-sharding" item, with the panel algorithm swapped per BASELINE.md r3's
-measured single-chip hr result.
+sharding" item, with the hr panel algorithm of drivers/square_hr.py.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import jax
@@ -62,21 +59,20 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from tileqr.core.config import QRConfig
 from tileqr.core.layout import round_up
-from tileqr.drivers.cholqr import _triu_inv_doubling, _up_half, potrf_batched
-from tileqr.drivers.sharded import _to_local_layout
-from tileqr.drivers.sharded_dyn import _assemble_r_dyn_jit, _ix, _unpack_local_jit
+from tileqr.drivers.cholqr import _triu_inv_doubling, _up_half, potrf
+from tileqr.drivers.sharded import (
+    SEGMENTS,
+    _to_local_layout,
+    _unpack_local_jit,
+    make_mesh,
+    mesh_from_factors,
+)
 from tileqr.drivers.square_hr import _dot, pad_for_hr
-from tileqr.kernels.common import resolve_interpret, resolve_precision
+from tileqr.kernels.common import bdot_pair_rows, resolve_precision
 from tileqr.kernels.modlu import modified_lu
+from tileqr.kernels.tile_ops import ix
 
 _HI = jax.lax.Precision.HIGHEST
-
-
-def _gram_pair(x, y, dt):
-    """Local xᵀ·y with pairwise block accumulation (see _cholqr2_psum)."""
-    from tileqr.drivers.cholqr import bdot_pair_rows
-
-    return bdot_pair_rows(x[None], y[None], _HI, dt)[0]
 
 
 class ShardedHRFactors(NamedTuple):
@@ -114,7 +110,7 @@ jax.tree_util.register_pytree_node(
 )
 
 
-def _cholqr2_psum(p, nb: int, interpret: bool, correction_iters: int = 2):
+def _cholqr2_psum(p, nb: int, correction_iters: int = 2):
     """Distributed CholeskyQR2 of one panel, rows sharded over 'rows' —
     the FUSED form (square_hr.hr_panel_fused ported across the mesh).
 
@@ -125,22 +121,20 @@ def _cholqr2_psum(p, nb: int, interpret: bool, correction_iters: int = 2):
     already-replicated gram at nb³ cost, deleting BOTH the Q-formation
     local tall pass and the R-gram's nb² psum (2 collectives per panel
     instead of 3 here). All matmuls HIGHEST — the factors define the
-    factorization (drivers/cholqr.py Q1 precision lesson). The LOCAL tall
-    contractions accumulate pairwise (bdot_pair_rows) for the same √m
-    reason as the single-chip cholqr2 (BASELINE.md r3 pairwise probe); the
-    psum across 'rows' is already a device-level tree."""
+    factorization (drivers/cholqr.py Q1 precision note). The LOCAL tall
+    contractions accumulate pairwise (common.bdot_pair_rows) for the same √m
+    reason as the single-device cholqr2; the psum across 'rows' is already
+    a device-level tree."""
     dt = p.dtype
     eye = jnp.eye(nb, dtype=dt)
-    g = jax.lax.psum(_gram_pair(p, p, dt), "rows")
-    r1 = potrf_batched(
-        g[None], group=1, precision="highest", interpret=interpret
-    )[0]
+    g = jax.lax.psum(bdot_pair_rows(p, p, _HI), "rows")
+    r1 = potrf(g[None])[0]
     s1 = _triu_inv_doubling(r1[None], _HI)[0]
     q1 = _dot(p, s1, _HI, dt)
     # matmul-only orthogonality correction (one nb² psum for the measured
     # round-1 gram — it must SEE Q₁'s formation rounding, so no algebraic
     # S₁ᵀGS₁ shortcut here; the iteration itself is replicated nb³ work)
-    e = jax.lax.psum(_gram_pair(q1, q1, dt), "rows") - eye
+    e = jax.lax.psum(bdot_pair_rows(q1, q1, _HI), "rows") - eye
     # breakdown monitor (replicated — e is post-psum): NaN-propagating max
     # of the round-1 defect, the same signal as cholqr2_batched(stats=True)
     emax = jnp.where(
@@ -170,53 +164,22 @@ def _reconstruct_yt_dist(q1, w, lu, d, top_off, is_owner, nb: int):
     uinv, l1tinv = invs[0], invs[1]
     t = -_dot(u * d[None, :], l1tinv, _HI, dt)
     y = _dot(q1, _dot(w, uinv, _HI, dt), _HI, dt)
-    ysub = jax.lax.dynamic_slice(y, _ix(top_off, 0), (nb, nb))
+    ysub = jax.lax.dynamic_slice(y, ix(top_off, 0), (nb, nb))
     y = jax.lax.dynamic_update_slice(
-        y, jnp.where(is_owner > 0, l1, ysub), _ix(top_off, 0)
+        y, jnp.where(is_owner > 0, l1, ysub), ix(top_off, 0)
     )
     return y, t
 
 
-def _apply_panel_dist(y, t, c, prec, trans: bool, interpret: bool = False):
+def _apply_panel_dist(y, t, c, prec, trans: bool):
     """C ← (I − Y·T·Yᵀ)ᵀ C (trans) / (I − Y·T·Yᵀ) C over sharded rows:
     one psum_rows of the nb-row projection, two local matmuls.
 
-    For precision="b3" the two LOCAL halves run as the split Pallas
-    whole-panel kernels (kernels/panel_apply.py panel_project/panel_sub —
-    in-kernel bf16 split, the only form where the 3-pass emulation wins;
-    BASELINE.md r3) with the psum sitting between them exactly where the
-    XLA form has it; the nb² T product stays HIGHEST.
-
-    The LOCAL projection W = YᵀC accumulates with the same discipline as the
-    single-chip hr update (square_hr._apply_block_t, VERDICT r3 missing-#3):
-    pairwise block accumulation on narrow targets, split-K on wide tall
-    ones — one fp32 dot over lm local rows carries the √lm sequential-
-    accumulation error the r3 campaign measured and killed single-chip
-    (7.4e-07 → 4.4e-07 at 16384²); the psum across 'rows' above it is
-    already a device-level tree and needs no help."""
-    from tileqr.drivers.cholqr import bdot_pair_rows
-    from tileqr.drivers.square_hr import _W_PAIR_MAX_COLS, _w_splitk
-    from tileqr.kernels.common import _EMULATED as _EMU
-
+    The LOCAL projection W = YᵀC accumulates pairwise over row blocks, as
+    the single-device hr update does (common.bdot_pair_rows); the psum
+    across 'rows' above it is already a device-level tree."""
     dt = c.dtype
-    nb = y.shape[1]
-    if (
-        prec in _EMU and dt == jnp.float32
-        and y.shape[0] % nb == 0 and c.shape[1] % nb == 0 and c.shape[1]
-    ):
-        from tileqr.kernels.panel_apply import panel_project, panel_sub
-
-        w = jax.lax.psum(panel_project(y, c, prec, interpret), "rows")
-        tm = jnp.transpose(t) if trans else t
-        w = _dot(tm, w, _HI, dt)
-        return panel_sub(y, w, c, prec, interpret)
-    if prec not in _EMU and y.shape[0] >= 2048 and c.shape[1] <= _W_PAIR_MAX_COLS:
-        w_loc = bdot_pair_rows(y[None], c[None], prec, dt)[0]
-    elif prec not in _EMU and dt == jnp.float32 and y.shape[0] >= 4096:
-        w_loc = _w_splitk(y, c, prec, dt)
-    else:
-        w_loc = _dot(jnp.transpose(y), c, prec, dt)
-    w = jax.lax.psum(w_loc, "rows")
+    w = jax.lax.psum(bdot_pair_rows(y, c, prec), "rows")
     tm = jnp.transpose(t) if trans else t
     w = _dot(tm, w, prec, dt)
     return c - _dot(y, w, prec, dt)
@@ -246,34 +209,46 @@ def qr_sharded_factor_hr(
     a: jnp.ndarray,
     mesh: Optional[Mesh] = None,
     config: Optional[QRConfig] = None,
-    segments: int = 8,
+    segments: int = SEGMENTS,
 ) -> ShardedHRFactors:
     """Factor A across a 2D mesh with gram-reduced CholeskyQR2 panels +
     Householder reconstruction. One shard_map program whose size is
-    O(segments), independent of panel count (``segments`` ≈ 8 bounds the
-    full-extent flop waste at ~20%)."""
+    O(segments), independent of panel count (``segments`` bounds the
+    full-extent flop waste at ~1 + 3/(2·segments))."""
     cfg = config if config is not None else QRConfig()
     nb = cfg.nb
     if mesh is None:
-        pr, pc = cfg.mesh_shape
-        mesh = jax.make_mesh((pr, pc), ("rows", "cols"))
+        mesh = make_mesh(cfg)
     pr, pc = mesh.devices.shape
-    interpret = resolve_interpret(cfg.interpret)
-    # "b3" rides the barrier-protected XLA-level split (square_hr._dot →
-    # kernels/common.dot_b3_xla); the naive split folds to one bf16 pass
-    # under --xla_allow_excess_precision
-    prec = resolve_precision(cfg.precision)
-
     a = jnp.asarray(a, cfg.dtype)
     m, n = a.shape
-    ap, _ = pad_for_hr(a, nb, row_mult=nb * pr, col_mult=nb * pc)
-    mp, np_ = ap.shape
+    mp, np_ = jax.eval_shape(
+        lambda x: pad_for_hr(x, nb, row_mult=nb * pr, col_mult=nb * pc)[0], a
+    ).shape
     mt, nt = mp // nb, np_ // nb
-    k_max = min(mt, nt)
-    lmt = mt // pr
+    segs = _seg_table(min(mt, nt), pr, pc, segments)
+    local_out, r_diag, t_all, health, y_segs = _factor_hr_jit(
+        a, nb, (mt, nt, pr, pc), segs, cfg.precision, mesh
+    )
+    # the guard is a host-side api concern (drivers/sharded.qr_sharded);
+    # the scalar rides the factors either way — hr_guard="off" callers can
+    # simply ignore it (an extra max chain per panel costs nothing against
+    # the update matmuls, so no stats knob forks the executable here)
+    return ShardedHRFactors(
+        local_out, r_diag, t_all, y_segs, nb, (m, n), (mt, nt, pr, pc), segs,
+        health,
+    )
 
+
+@functools.partial(
+    jax.jit, static_argnames=("nb", "grid", "segs", "precision", "mesh")
+)
+def _factor_hr_jit(a, nb, grid, segs, precision, mesh):
+    mt, nt, pr, pc = grid
+    prec = resolve_precision(precision)
+    k_max = min(mt, nt)
+    ap, _ = pad_for_hr(a, nb, row_mult=nb * pr, col_mult=nb * pc)
     local = _to_local_layout(ap, nb, pr, pc)
-    segs = _seg_table(k_max, pr, pc, segments)
 
     def body(loc_in):
         loc = loc_in[0, 0]
@@ -299,7 +274,7 @@ def qr_sharded_factor_hr(
                 top_off = (k // pr - lr) * nb
 
                 pcol_own = jax.lax.dynamic_slice(
-                    sub, _ix(0, (k // pc - lc) * nb), (lm_s, nb)
+                    sub, ix(0, (k // pc - lc) * nb), (lm_s, nb)
                 )
                 pcol = jax.lax.psum(
                     pcol_own * (col == c_k).astype(dt), "cols"
@@ -307,26 +282,26 @@ def qr_sharded_factor_hr(
                 wmask = (rowg >= k).astype(dt)[:, None]
                 p = pcol * wmask
 
-                q1, wc, rch, emax = _cholqr2_psum(p, nb, interpret)
+                q1, wc, rch, emax = _cholqr2_psum(p, nb)
                 health = jnp.maximum(health, emax)
-                q1top = jax.lax.dynamic_slice(q1, _ix(top_off, 0), (nb, nb))
+                q1top = jax.lax.dynamic_slice(q1, ix(top_off, 0), (nb, nb))
                 q1top = jax.lax.psum(q1top * is_owner, "rows")
                 # Q_top = Q₁_top·W — replicated nb³; Q itself is never formed
                 qtop = _dot(q1top, wc, _HI, dt)
-                lu, d = modified_lu(qtop, interpret=interpret)
+                lu, d = modified_lu(qtop)
                 y, t = _reconstruct_yt_dist(q1, wc, lu, d, top_off, is_owner, nb)
                 y = y * wmask
 
-                sub = _apply_panel_dist(y, t, sub, prec, trans=True, interpret=interpret)
+                sub = _apply_panel_dist(y, t, sub, prec, trans=True)
 
                 r_diag = jax.lax.dynamic_update_slice(
-                    r_diag, (d[:, None] * rch)[None], _ix(k, 0, 0)
+                    r_diag, (d[:, None] * rch)[None], ix(k, 0, 0)
                 )
                 y_seg = jax.lax.dynamic_update_slice(
-                    y_seg, y[None], _ix(k - ks, 0, 0)
+                    y_seg, y[None], ix(k - ks, 0, 0)
                 )
                 t_all = jax.lax.dynamic_update_slice(
-                    t_all, t[None], _ix(k, 0, 0)
+                    t_all, t[None], ix(k, 0, 0)
                 )
                 return sub, r_diag, y_seg, t_all, health
 
@@ -344,7 +319,7 @@ def qr_sharded_factor_hr(
         return (loc[None, None], r_diag, t_all, health, tuple(y_outs))
 
     sh = P("rows", "cols")
-    local_out, r_diag, t_all, health, y_segs = jax.shard_map(
+    return jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(sh,),
@@ -352,25 +327,13 @@ def qr_sharded_factor_hr(
         check_vma=False,
     )(local)
 
-    # the guard is a host-side api concern (drivers/sharded.qr_sharded);
-    # the scalar rides the factors either way — hr_guard="off" callers can
-    # simply ignore it (an extra max chain per panel costs nothing against
-    # the update matmuls, so no stats knob forks the executable here)
-    return ShardedHRFactors(
-        local_out, r_diag, t_all, y_segs, nb, (m, n), (mt, nt, pr, pc), segs,
-        health,
-    )
-
 
 def assemble_r_sharded_hr(f: ShardedHRFactors, mesh: Optional[Mesh] = None):
     """R (M, N) as a device array computed under jit (triu of the updated
     local matrices + the replicated diagonal tiles)."""
-    mt, nt, pr, pc = f.grid
-    if mesh is None:
-        from tileqr.drivers.sharded_dyn import mesh_from_factors
+    from tileqr.drivers.sharded import assemble_r_sharded
 
-        mesh = mesh_from_factors(f.local, pr, pc)
-    return _assemble_r_dyn_jit(f.local, f.r_diag, f.nb, f.grid, f.shape, mesh)
+    return assemble_r_sharded(f, mesh)
 
 
 def apply_q_sharded_hr(
@@ -385,32 +348,38 @@ def apply_q_sharded_hr(
     panel — the factor phase's update step replayed, segment-sliced like
     the factor (Qᵀ runs segments forward, Q reversed)."""
     cfg = config if config is not None else QRConfig(nb=f.nb)
-    nb = f.nb
-    interpret = resolve_interpret(cfg.interpret)
     mt, nt, pr, pc = f.grid
     if mesh is None:
-        from tileqr.drivers.sharded_dyn import mesh_from_factors
-
         mesh = mesh_from_factors(f.local, pr, pc)
-    prec = resolve_precision(cfg.precision)
-    lmt = mt // pr
-
     c_mat = jnp.asarray(c_mat, f.local.dtype)
+    out = _apply_hr_jit(
+        c_mat, f.t_all, f.y_segs, f.nb, f.grid, f.segs, trans, cfg.precision, mesh
+    )
+    return out[: c_mat.shape[0], : c_mat.shape[1]]
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("nb", "grid", "segs", "trans", "precision", "mesh"),
+)
+def _apply_hr_jit(c_mat, t_all, y_segs, nb, grid, segs, trans, precision, mesh):
+    mt, nt, pr, pc = grid
+    prec = resolve_precision(precision)
+    lmt = mt // pr
     mc, p = c_mat.shape
-    mpad = mt * nb
     ppad = round_up(max(p, 1), nb * pc)
-    cp = jnp.pad(c_mat, ((0, mpad - mc), (0, ppad - p)))
+    cp = jnp.pad(c_mat, ((0, mt * nb - mc), (0, ppad - p)))
     cl = _to_local_layout(cp, nb, pr, pc)
     lpt = cl.shape[3] // nb
 
-    seg_order = range(len(f.segs)) if trans else reversed(range(len(f.segs)))
+    seg_order = range(len(segs)) if trans else reversed(range(len(segs)))
     seg_order = list(seg_order)
 
     def body(cloc, t_all, *y_segs):
         cm = cloc[0, 0]
 
         for si in seg_order:
-            ks, ke, lr, _lc = f.segs[si]
+            ks, ke, lr, _lc = segs[si]
             y_seg = y_segs[si][0]
             sub = cm[lr * nb :, :]
 
@@ -418,10 +387,10 @@ def apply_q_sharded_hr(
                 i = jnp.asarray(i, jnp.int32)
                 k = ks + i if trans else (ke - 1 - i)
                 y = jax.lax.dynamic_slice(
-                    y_seg, _ix(k - ks, 0, 0), (1,) + y_seg.shape[1:]
+                    y_seg, ix(k - ks, 0, 0), (1,) + y_seg.shape[1:]
                 )[0]
-                t = jax.lax.dynamic_slice(t_all, _ix(k, 0, 0), (1, nb, nb))[0]
-                return _apply_panel_dist(y, t, sub, prec, trans=trans, interpret=interpret)
+                t = jax.lax.dynamic_slice(t_all, ix(k, 0, 0), (1, nb, nb))[0]
+                return _apply_panel_dist(y, t, sub, prec, trans=trans)
 
             sub = jax.lax.fori_loop(0, ke - ks, one_panel, sub)
             cm = jnp.concatenate([cm[: lr * nb, :], sub], axis=0) if lr else sub
@@ -432,10 +401,8 @@ def apply_q_sharded_hr(
     cl_out = jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=(sh, P()) + tuple(P("rows") for _ in f.segs),
+        in_specs=(sh, P()) + tuple(P("rows") for _ in segs),
         out_specs=sh,
         check_vma=False,
-    )(cl, f.t_all, *f.y_segs)
-
-    out = _unpack_local_jit(cl_out, nb, lmt, lpt, mesh)
-    return out[:mc, :p]
+    )(cl, t_all, *y_segs)
+    return _unpack_local_jit(cl_out, nb, lmt, lpt, mesh)

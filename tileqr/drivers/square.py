@@ -1,124 +1,80 @@
 """Right-looking tiled QR driver (reference component C7, SURVEY.md §3.1).
 
 The reference drives the tile DAG with a host loop launching CUDA kernels on
-streams with events + right-looking lookahead [BASELINE.json:5]. The TPU-
-native replacement: a trace-time-unrolled Python loop over panels inside one
-``jax.jit``, emitting a handful of fused pallas_calls per panel; concurrency
-that CUDA got from streams comes from *within* each fused kernel (Pallas
-double-buffers tile DMAs against compute). The matrix buffer A is updated in
-place (input/output aliasing) and is passed to every kernel EXACTLY once —
-reflector factors travel in separate stacked arrays, because an operand that
-both aliases the output and feeds a second input forces XLA to materialize a
-defensive full-matrix copy per call (measured ~0.6 ms each at 8192²).
+streams with events + lookahead [BASELINE.json:5]. Here the panel loop is a
+Python loop unrolled inside one ``jax.jit`` (``qr_tiled``): per panel, the
+plain tile ops of kernels/tile_ops.py factor the panel column (GEQRT + TSQRT
+couples) and apply its reflectors to the trailing columns (LARFB + SSRFB
+GEMMs), and XLA schedules the whole program. The matrix buffer is updated in
+place by ``dynamic_update_slice``.
 
-Chunked elimination (kernels/chain.py): the sub-diagonal is processed in
-couples of ``chunk`` tiles (plus a ≤chunk-1 tile "head" at tile granularity
-for block alignment). chunk=1 reproduces the reference's flat-tree tile
-algebra exactly; larger chunks cut the latency-bound panel column-loop count
-by ~chunk× and the update flops by up to 1/3 (amortized T-apply).
+Every panel of the unrolled driver has its own shapes and is compiled on its
+own, so its compile grows with the panel count (PERF.md). Past
+``STATIC_MAX_PANELS`` the api takes ``qr_tiled_loop``: the same chunk=0 tile
+algebra in a ``lax.fori_loop`` over the panels of each of a few segments.
+A segment's panels all work on the segment's (static) trailing block, with
+the panel's diagonal tile at a runtime row (tile_ops.panel_factor_at /
+panel_apply_at), so one panel body is compiled per segment. The price is the
+work on the block's finished rows and columns: about 1 + 3/(2·segments)
+times the update flops of a square matrix.
+
+Couples (kernels/tile_ops.couple_bounds): the sub-diagonal of panel k is
+eliminated in couples of ``chunk`` tiles. chunk=1 reproduces the reference's
+flat-tree tile algebra exactly; chunk=0 eliminates the whole sub-diagonal in
+one couple, which is blocked Householder QR with a tile-sized GEQRT on top.
 
 Factor layout (QR factors of panel k):
   r_diag[k]: final diagonal R tile. t_geqrt[k]: compact-WY T of the GEQRT.
-  panels[k] = (v_stack, t2_head, v_chunks, t2_chunks): v_stack
-  (1+n_head, nb, nb) = packed GEQRT tile + head V2 tiles; v_chunks
-  (n_chunks, chunk·nb, nb) = tall dense V2 chunks. A's upper triangle holds
-  the off-diagonal R tiles; its sub-diagonal content is unspecified.
+  panels[k] = (packed_kk, couples): packed_kk (nb, nb) is the packed GEQRT
+  tile; couples is a tuple of (V2 (rows, nb), T2 (nb, nb)) top-down. A's
+  upper triangle holds the off-diagonal R tiles; its sub-diagonal content
+  is unspecified.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 
-from tileqr.kernels.chain import couple_strip, larfb_strip, panel_chain
-from tileqr.kernels.panel import panel_factor
-
-
-def _chunk_for(mt: int, chunk: int) -> int:
-    """Largest c <= chunk dividing mt (static, deterministic per shape)."""
-    for c in range(min(chunk, mt), 0, -1):
-        if mt % c == 0:
-            return c
-    return 1
-
-
-def _segments(k: int, mt: int, c: int) -> Tuple[int, int, int]:
-    """(n_head, base_block, n_chunks) for panel k's sub-diagonal."""
-    rem = mt - k - 1
-    n_head = min((c - (k + 1) % c) % c, rem)
-    align = k + 1 + n_head
-    n_chunks = (mt - align) // c
-    return n_head, align // c, n_chunks
-
-
-@functools.partial(
-    jax.jit, static_argnames=("nb", "ib", "chunk", "precision", "interpret")
+from tileqr.kernels.common import resolve_precision
+from tileqr.kernels.tile_ops import (
+    ix,
+    panel_apply,
+    panel_apply_at,
+    panel_factor,
+    panel_factor_at,
+    stack_get,
+    stack_put,
 )
-def qr_tiled(
-    a: jnp.ndarray,
-    nb: int,
-    ib: int = 128,
-    chunk: int = 4,
-    precision: str = "highest",
-    interpret: bool = False,
-):
+
+# Panel counts above this take the loop driver (api.qr_factor).
+STATIC_MAX_PANELS = 32
+# Segments of the loop drivers: one compiled panel body each.
+LOOP_SEGMENTS = 16
+
+
+@functools.partial(jax.jit, static_argnames=("nb", "chunk", "precision"))
+def qr_tiled(a: jnp.ndarray, nb: int, chunk: int = 0, precision: str = "highest"):
     """Factor A (M, N; multiples of nb) in place.
 
     Returns (a, r_diag, t_geqrt, panels) in the module-docstring layout.
     """
+    prec = resolve_precision(precision)
     m, n = a.shape
     mt, nt = m // nb, n // nb
-    k_max = min(mt, nt)
-    c = _chunk_for(mt, chunk)
-
     r_diag, t_geqrt, panels = [], [], []
-    for k in range(k_max):
-        n_head, base, nc = _segments(k, mt, c)
-        r_k, v_stack, tg_k, t2h = panel_factor(
-            a, k, nb, ib=ib, n_couples=n_head, interpret=interpret
-        )
-        if nc > 0:
-            r_k, v_chunks, t2t = panel_chain(
-                a, r_k, k, nb, base, nc, c * nb, ib=ib, interpret=interpret
-            )
-        else:
-            v_chunks = jnp.zeros((0, c * nb, nb), a.dtype)
-            t2t = jnp.zeros((0, nb, nb), a.dtype)
+    for k in range(min(mt, nt)):
+        s = k * nb
+        r_k, packed, tg, couples = panel_factor(a[s:, s : s + nb], nb, chunk, prec)
         r_diag.append(r_k)
-        t_geqrt.append(tg_k)
-        panels.append((v_stack, t2h, v_chunks, t2t))
-
-        nt_rem = nt - k - 1
-        if nt_rem > 0:
-            # the diagonal-tile LARFB is fused into the first couple sweep
-            # (one fewer dispatch + one fewer strip HBM round-trip per panel)
-            strip = a[k * nb : (k + 1) * nb, (k + 1) * nb :]
-            if n_head > 0:
-                a, strip = couple_strip(
-                    v_stack, t2h, a, strip, 1, k + 1, n_head, nb, nb, k + 1,
-                    trans=True, precision=precision, interpret=interpret,
-                    vkk=v_stack[0], tg=tg_k,
-                )
-                if nc > 0:
-                    a, strip = couple_strip(
-                        v_chunks, t2t, a, strip, 0, base, nc, c * nb, nb, k + 1,
-                        trans=True, precision=precision, interpret=interpret,
-                    )
-            elif nc > 0:
-                a, strip = couple_strip(
-                    v_chunks, t2t, a, strip, 0, base, nc, c * nb, nb, k + 1,
-                    trans=True, precision=precision, interpret=interpret,
-                    vkk=v_stack[0], tg=tg_k,
-                )
-            else:
-                strip = larfb_strip(
-                    v_stack[0], tg_k, strip, nb, trans=True,
-                    precision=precision, interpret=interpret,
-                )
-            a = jax.lax.dynamic_update_slice(a, strip, (k * nb, (k + 1) * nb))
+        t_geqrt.append(tg)
+        panels.append((packed, couples))
+        if k + 1 < nt:
+            win = panel_apply(packed, tg, couples, a[s:, s + nb :], True, prec)
+            a = jax.lax.dynamic_update_slice(a, win, (s, s + nb))
     return a, jnp.stack(r_diag), jnp.stack(t_geqrt), tuple(panels)
 
 
@@ -135,95 +91,127 @@ def assemble_r(packed: jnp.ndarray, r_diag: jnp.ndarray, nb: int) -> jnp.ndarray
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("nb", "chunk", "trans", "precision", "interpret", "triangular"),
+    jax.jit, static_argnames=("nb", "trans", "precision", "triangular")
 )
 def apply_q_tiled(
     panels: Tuple,
     t_geqrt: jnp.ndarray,
     c_mat: jnp.ndarray,
     nb: int,
-    chunk: int = 4,
     trans: bool = True,
     precision: str = "highest",
-    interpret: bool = False,
     triangular: bool = False,
 ):
-    """C ← Qᵀ C (trans) or Q C, replaying the (possibly chunked) tiled
-    reflectors (LAPACK xORMQR semantics; SURVEY.md §3.4). c_mat: (M, P),
-    P a multiple of nb. ``chunk`` must match the factorization's.
+    """C ← Qᵀ C (trans) or Q C, replaying the tiled reflectors (LAPACK
+    xORMQR semantics; SURVEY.md §3.4). c_mat: (M, P).
 
     triangular (trans=False only): LAPACK xORGQR's growing-window trick for
     C with eye-like column structure (column tile j zero below row tile j,
     as the identity is): in reverse panel order, panel k is an EXACT no-op
-    on column tiles < k — W = V₂ᵀC_bot sums over all-zero rows — so each
-    panel's sweep starts at column tile k, halving the Q-formation flops.
-    Only valid for such C (api.orgqr); a general C must use the full sweep.
+    on column tiles < k — W = VᵀC sums over all-zero rows — so each panel's
+    sweep starts at column tile k, halving the Q-formation flops. Only valid
+    for such C (api.orgqr); a general C must use the full sweep.
     """
-    m, _p = c_mat.shape
-    mt = m // nb
-    k_max = len(panels)
-    c = _chunk_for(mt, chunk)
-    assert not (triangular and trans), "triangular window applies to Q·C only"
-
-    def one_panel(cm, k):
-        if triangular and k * nb >= _p:
-            # reduced-ncols orgqr: the growing window starts right of C's
-            # last column — the panel is an exact no-op on the eye-structured
-            # C (same argument as the window itself), and slicing would pass
-            # a zero-width strip / negative column count downstream
-            return cm
-        n_head, base, nc = _segments(k, mt, c)
-        v_stack, t2h, v_chunks, t2t = panels[k]
-        cs = k if triangular else 0  # first column tile this panel touches
-        strip = cm[k * nb : (k + 1) * nb, cs * nb :]
-        if trans:
-            # LARFB fused into the first couple sweep (factor order)
-            if n_head > 0:
-                cm, strip = couple_strip(
-                    v_stack, t2h, cm, strip, 1, k + 1, n_head, nb, nb, 0,
-                    trans=True, precision=precision, interpret=interpret,
-                    vkk=v_stack[0], tg=t_geqrt[k],
-                )
-                if nc > 0:
-                    cm, strip = couple_strip(
-                        v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, 0,
-                        trans=True, precision=precision, interpret=interpret,
-                    )
-            elif nc > 0:
-                cm, strip = couple_strip(
-                    v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, 0,
-                    trans=True, precision=precision, interpret=interpret,
-                    vkk=v_stack[0], tg=t_geqrt[k],
-                )
-            else:
-                strip = larfb_strip(
-                    v_stack[0], t_geqrt[k], strip, nb, trans=True,
-                    precision=precision, interpret=interpret,
-                )
-        else:
-            # LARFB fused into the last couple sweep (Q-apply order)
-            if nc > 0:
-                cm, strip = couple_strip(
-                    v_chunks, t2t, cm, strip, 0, base, nc, c * nb, nb, cs,
-                    trans=False, reverse=True, precision=precision, interpret=interpret,
-                    vkk=None if n_head > 0 else v_stack[0],
-                    tg=None if n_head > 0 else t_geqrt[k],
-                )
-            if n_head > 0:
-                cm, strip = couple_strip(
-                    v_stack, t2h, cm, strip, 1, k + 1, n_head, nb, nb, cs,
-                    trans=False, reverse=True, precision=precision, interpret=interpret,
-                    vkk=v_stack[0], tg=t_geqrt[k],
-                )
-            if n_head == 0 and nc == 0:
-                strip = larfb_strip(
-                    v_stack[0], t_geqrt[k], strip, nb, trans=False,
-                    precision=precision, interpret=interpret,
-                )
-        return jax.lax.dynamic_update_slice(cm, strip, (k * nb, cs * nb))
-
-    ks = range(k_max) if trans else range(k_max - 1, -1, -1)
+    if triangular and trans:
+        raise ValueError("triangular window applies to Q·C only")
+    prec = resolve_precision(precision)
+    p = c_mat.shape[1]
+    ks = range(len(panels)) if trans else range(len(panels) - 1, -1, -1)
     for k in ks:
-        c_mat = one_panel(c_mat, k)
+        s = k * nb
+        cs = s if triangular else 0  # first column this panel touches
+        if cs >= p:
+            # the growing window starts right of C's last column: the panel
+            # is an exact no-op on the eye-structured C
+            continue
+        packed, couples = panels[k]
+        win = panel_apply(packed, t_geqrt[k], couples, c_mat[s:, cs:], trans, prec)
+        c_mat = jax.lax.dynamic_update_slice(c_mat, win, (s, cs))
+    return c_mat
+
+
+def loop_segments(k_max: int, segments: int = LOOP_SEGMENTS):
+    """Panel ranges [ks, ke) of the loop drivers: near-equal, and of at least
+    two panels each where there are two."""
+    s = max(1, min(segments, k_max // 2))
+    b = [round(i * k_max / s) for i in range(s + 1)]
+    return tuple((b[i], b[i + 1]) for i in range(s))
+
+
+class PanelStack(NamedTuple):
+    """Reflectors of ``qr_tiled_loop``: packed (K, nb, nb) GEQRT tiles,
+    t2 (K, nb, nb) couple T factors, and per segment [ks, ke) the couples'
+    V2 (ke − ks, h − nb, nb) in rolled rows, h = M − ks·nb (row 0 is the row
+    below the panel's diagonal tile; zeros past the matrix's end)."""
+
+    packed: jnp.ndarray
+    t2: jnp.ndarray
+    v2: Tuple[jnp.ndarray, ...]
+    segs: Tuple[Tuple[int, int], ...]
+
+
+jax.tree_util.register_pytree_node(
+    PanelStack,
+    lambda p: ((p.packed, p.t2, p.v2), p.segs),
+    lambda segs, ch: PanelStack(*ch, segs),
+)
+
+
+@functools.partial(jax.jit, static_argnames=("nb", "segments", "precision"))
+def qr_tiled_loop(a, nb: int, segments: int = LOOP_SEGMENTS, precision: str = "highest"):
+    """``qr_tiled`` with chunk=0 as a ``fori_loop`` over each segment's
+    panels. Returns (a, r_diag, t_geqrt, PanelStack); a and r_diag as
+    ``qr_tiled``'s."""
+    prec = resolve_precision(precision)
+    m, n = a.shape
+    k_max = min(m, n) // nb
+    segs = loop_segments(k_max, segments)
+    zero = jnp.zeros((k_max, nb, nb), a.dtype)
+    bufs = (zero,) * 4  # r_diag, t_geqrt, packed, t2
+    v2s = []
+    for ks, ke in segs:
+        s = ks * nb
+        sub = a[s:, s:]
+        h = sub.shape[0]
+
+        def panel(k, carry, ks=ks, h=h):
+            sub, bufs, v2 = carry
+            o = (k - ks) * nb
+            col = jax.lax.dynamic_slice(sub, ix(0, o), (h, nb))
+            r, packed, tg, v2k, t2 = panel_factor_at(col, o, nb, prec)
+            sub = panel_apply_at(packed, tg, v2k, t2, sub, o, True, prec)
+            bufs = tuple(stack_put(b, x, k) for b, x in zip(bufs, (r, tg, packed, t2)))
+            return sub, bufs, stack_put(v2, v2k, k - ks)
+
+        v2 = jnp.zeros((ke - ks, h - nb, nb), a.dtype)
+        sub, bufs, v2 = jax.lax.fori_loop(ks, ke, panel, (sub, bufs, v2))
+        a = jax.lax.dynamic_update_slice(a, sub, ix(s, s))
+        v2s.append(v2)
+    r_diag, t_geqrt, packed, t2 = bufs
+    return a, r_diag, t_geqrt, PanelStack(packed, t2, tuple(v2s), segs)
+
+
+@functools.partial(jax.jit, static_argnames=("nb", "trans", "precision"))
+def apply_q_loop(
+    stack: PanelStack, t_geqrt, c_mat, nb: int, trans: bool = True,
+    precision: str = "highest",
+):
+    """C ← Qᵀ C (trans) or Q C with the factors of ``qr_tiled_loop``, as a
+    ``fori_loop`` over each segment's panels. c_mat: (M, P), M the padded
+    rows of the factorization."""
+    prec = resolve_precision(precision)
+    order = range(len(stack.segs)) if trans else reversed(range(len(stack.segs)))
+    for si in order:
+        ks, ke = stack.segs[si]
+        s = ks * nb
+
+        def panel(i, sub, ks=ks, ke=ke, v2=stack.v2[si]):
+            k = ks + i if trans else ke - 1 - i
+            return panel_apply_at(
+                stack_get(stack.packed, k), stack_get(t_geqrt, k), stack_get(v2, k - ks),
+                stack_get(stack.t2, k), sub, (k - ks) * nb, trans, prec,
+            )
+
+        sub = jax.lax.fori_loop(0, ke - ks, panel, c_mat[s:])
+        c_mat = jax.lax.dynamic_update_slice(c_mat, sub, ix(s, 0))
     return c_mat

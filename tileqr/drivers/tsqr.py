@@ -1,34 +1,22 @@
 """Tall-skinny TSQR driver (reference component C8, SURVEY.md §3.2;
 BASELINE.json:9 config — 1048576×512).
 
-The reference splits an M×nb panel into row-block leaves, GEQRTs every leaf,
+The reference splits an M×n panel into row-block leaves, GEQRTs every leaf,
 then runs TTQRT tree levels to one R — the communication-avoiding CAQR
-reduction [BASELINE.json:5, PAPERS.md Demmel CAQR]. The TPU bottleneck is the
-serial Householder column loop: every leaf and every combine pays one n-column
-loop, so wall-clock ∝ (#leaves + #combines) × n, NOT flops. The r1 binary
-tree with nb-row leaves paid (M/nb − 1 + M/nb) loops and ran 7.8× slower than
-the chain strategy; this driver minimizes loop count instead:
+reduction [BASELINE.json:5, PAPERS.md Demmel CAQR]. Here:
 
-  * TALL leaves: one Pallas grid program factors ``leaf_rows`` (default up to
-    4096) rows per column loop. Leaves bigger than the ~16 MB VMEM scope are
-    staged manually — the input lives in HBM (memory_space=ANY) and the
-    kernel DMAs stage_rows-row chunks through a small VMEM buffer into the
-    transposed working scratch (and back out for the packed reflectors), so
-    only the (n, leaf_rows) scratch + one stage buffer are resident.
-  * WIDE-arity tree: each level stacks up to ``arity`` surviving R factors
-    and re-runs the SAME tall kernel on the (a·n, n) stacks — one column loop
-    eliminates a−1 R's (the r1 binary TTQRT eliminated one). The TT structure
-    (upper-triangular blocks) is preserved exactly by the masked column math;
-    the ~2× triangular flop saving is NOT shape-exploited because the cost is
-    column-loop latency, not flops (measured: block-boundary overheads and
-    serial latency dominate ≥10:1 over MXU time at these shapes).
+  * the leaves are ONE batched Householder call over the (p, leaf_rows, n)
+    stack (kernels/tile_ops.geqrt: ``lax.linalg.geqrf`` + the Gram-solve T);
+  * each tree level stacks up to ``arity`` surviving R factors and factors
+    the (ncomb, a·n, n) stacks with the same batched call — a wide-arity
+    TTQRT that eliminates a−1 R's per combine.
 
 Tree shape (grouping, arity per level, survivor order) is a static function
 of (M, n, leaf_rows, arity) — fixed shapes, deterministic outputs
 [BASELINE.json:5 "bitwise-stable"].
 
 Apply-Qᵀ replays leaves then levels on the group-stacked top slices of the
-target; all compact-WY matmuls (larfb_body) — pure MXU XLA, no kernel needed.
+target, all compact-WY matmuls (kernels/tile_ops.larfb).
 """
 
 from __future__ import annotations
@@ -38,25 +26,22 @@ from typing import List, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tileqr.kernels.common import acc_type, resolve_interpret, resolve_precision, triu
-from tileqr.kernels.geqrt import geqrt_in_refs
-from tileqr.kernels.larfb import larfb_body
+from tileqr.kernels.common import acc_type, resolve_precision, triu
+from tileqr.kernels.tile_ops import geqrt, larfb
 
 
 class TSQRFactors(NamedTuple):
     """packed_leaves: (M, n) leaf reflectors (packed GEQRT form per leaf);
     t_leaves: (p, n, n) leaf compact-WY T factors; levels: per tree level
     (packed (ncomb, a·n, n), t (ncomb, n, n), survivors_before, arity);
-    r: (n, n) final factor.
+    r: (n, n) final factor; shape: the caller's unpadded (M, n).
 
     Registered as a jax pytree whose int fields (leaf_rows, shape, plan,
     level counts) are STATIC aux data, so factors pass through ``jax.jit``
     boundaries as arguments — closing over a factor instead bakes its
-    arrays into the HLO as multi-GiB constants (measured 3.6 GB at the
-    1048576×512 config, which breaks remote compilation)."""
+    arrays into the HLO as multi-GiB constants (3.6 GB at the 1048576×512
+    config)."""
 
     packed_leaves: jnp.ndarray
     t_leaves: jnp.ndarray
@@ -90,145 +75,29 @@ jax.tree_util.register_pytree_node(
 )
 
 
-# VMEM budget for the transposed working scratch. The kernel's peak footprint
-# is ~3× this (scratch + stage + the (n−ib, leaf_rows) value the MXU
-# block-apply loads from the scratch ref + T out) and must stay under the
-# 16 MB scoped-vmem limit — 8 MB scratch was measured to OOM at 22.35 MB.
-_SCRATCH_BYTES = 4 * 1024 * 1024
-# unstaged (BlockSpec-streamed) kernels double-buffer in+out: keep leaves
-# small enough that ~6 copies of the leaf block + scratch fit
-_UNSTAGED_LEAF_BYTES = 1 * 1024 * 1024
+# Leaf height: the leaves are factored by one batched geqrf, so a leaf is
+# bounded only by the tree precondition (>= 2n rows). The batched geqrf of
+# many short leaves is slow on the GPU (PERF.md sweep at 1048576×512: 12 s
+# for 128 leaves of 8192 rows, 0.13 s for 4 of 262144), so leaves are tall.
+LEAF_ROWS = 262144
 
 
 def auto_leaf_rows(m: int, n: int) -> int:
-    """Largest leaf that keeps the (n, leaf_rows) scratch within budget.
-
-    Floored at 2n so the tree precondition (leaf >= two stacked R factors)
-    holds for any n — for n > ~1024 the resulting scratch exceeds the 16 MB
-    Mosaic VMEM scope and the tree only runs in interpret mode (on compiled
-    TPU, strategy "auto" routes such shapes through the chain). 128-aligned
-    when possible so the staged kernel's lane slices stay register-tiled."""
-    target = max(2 * n, _SCRATCH_BYTES // (n * 4))
-    target -= target % 128 if target >= 128 else target % 8
-    target = max(target, 2 * n)
-    if target % 8:
-        target += 8 - target % 8
+    """Leaf height for an (m, n) TSQR: LEAF_ROWS, floored at 2n so the tree
+    precondition (a leaf holds two stacked R factors) holds for any n, and
+    capped at m (rounded to a multiple of 8)."""
+    target = max(LEAF_ROWS, 2 * n)
+    target += -target % 8
     return max(8, min(m, target))
 
 
-def _mk_tall_kernel(ib: int, n: int, leaf_rows: int, stage_rows: int, staged: bool):
-    if not staged:
-
-        def kernel(a_ref, packed_ref, t_ref, at_scr, tt_scr):
-            at_scr[:] = a_ref[:].T
-            tt_scr[:] = jnp.zeros_like(tt_scr)
-            geqrt_in_refs(at_scr, tt_scr, n, ib=ib)
-            packed_ref[:] = at_scr[:].T
-            t_ref[0] = tt_scr[:].T
-
-        return kernel
-
-    nchunks = leaf_rows // stage_rows
-
-    def kernel(a_any, packed_any, t_ref, at_scr, tt_scr, stage, sem):
-        i = pl.program_id(0)
-        for h in range(nchunks):
-            cp = pltpu.make_async_copy(
-                a_any.at[pl.ds(i * leaf_rows + h * stage_rows, stage_rows), :],
-                stage,
-                sem,
-            )
-            cp.start()
-            cp.wait()
-            at_scr[:, h * stage_rows : (h + 1) * stage_rows] = stage[:].T
-        tt_scr[:] = jnp.zeros_like(tt_scr)
-        geqrt_in_refs(at_scr, tt_scr, n, ib=ib)
-        for h in range(nchunks):
-            stage[:] = at_scr[:, h * stage_rows : (h + 1) * stage_rows].T
-            cp = pltpu.make_async_copy(
-                stage,
-                packed_any.at[pl.ds(i * leaf_rows + h * stage_rows, stage_rows), :],
-                sem,
-            )
-            cp.start()
-            cp.wait()
-        t_ref[0] = tt_scr[:].T
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("leaf_rows", "ib", "interpret"))
-def tall_geqrt(a, leaf_rows: int, ib: int = 128, interpret: bool = False):
-    """Factor every ``leaf_rows``-row block of a (M, n), M % leaf_rows == 0:
-    one Householder column loop per block. Returns (packed (M, n), T (p, n, n))."""
+def leaf_geqrt(a, leaf_rows: int, precision=jax.lax.Precision.HIGHEST):
+    """Factor every ``leaf_rows``-row block of a (M, n), M % leaf_rows == 0,
+    in one batched call. Returns (packed (M, n), T (p, n, n))."""
     m, n = a.shape
     p = m // leaf_rows
-    dt = a.dtype
-    staged = leaf_rows * n * 4 > _UNSTAGED_LEAF_BYTES
-    if staged and leaf_rows % 8:
-        # only the staged path slices the leaf for DMA; unstaged (small)
-        # leaves — e.g. tree-level combine stacks with n % 8 != 0 — are fine
-        raise ValueError(f"staged leaf_rows={leaf_rows} must be a multiple of 8")
-    if not interpret:
-        # compiled Mosaic: the transposed working scratch must fit the
-        # ~16 MB VMEM scope — fail with guidance instead of an obscure
-        # Mosaic OOM (large-n trees run in interpret mode or via the chain
-        # strategy; see auto_leaf_rows)
-        scratch_bytes = (n * leaf_rows + n * n) * 4
-        if scratch_bytes > 14 * 1024 * 1024:
-            raise ValueError(
-                f"tall_geqrt scratch (n={n}, leaf_rows={leaf_rows}) needs "
-                f"{scratch_bytes / 2**20:.1f} MB VMEM > the ~16 MB Mosaic "
-                "scope; use a smaller leaf/n, interpret mode, or the chain "
-                "strategy (tsqr(strategy='chain'))"
-            )
-    # stage buffer: a divisor of leaf_rows, preferring quarter/half leaves
-    # that keep lane slice offsets (h·stage_rows) 128-aligned; fall back to
-    # the whole leaf (single DMA) rather than risk unaligned slices or a
-    # non-terminating search for awkward leaf_rows
-    stage_rows = leaf_rows
-    if staged:
-        for cand in (leaf_rows // 4, leaf_rows // 2):
-            if cand >= 8 and leaf_rows % cand == 0 and cand % 128 == 0:
-                stage_rows = cand
-                break
-        else:
-            for cand in (leaf_rows // 4, leaf_rows // 2):
-                if cand >= 8 and leaf_rows % cand == 0 and cand % 8 == 0:
-                    stage_rows = cand
-                    break
-
-    kernel = _mk_tall_kernel(ib, n, leaf_rows, stage_rows, staged)
-    scratch = [
-        pltpu.VMEM((n, leaf_rows), dt),
-        pltpu.VMEM((n, n), dt),
-    ]
-    if staged:
-        in_specs = [pl.BlockSpec(memory_space=pl.ANY)]
-        packed_spec = pl.BlockSpec(memory_space=pl.ANY)
-        scratch += [pltpu.VMEM((stage_rows, n), dt), pltpu.SemaphoreType.DMA]
-    else:
-        in_specs = [
-            pl.BlockSpec((leaf_rows, n), lambda i: (i, 0), memory_space=pltpu.VMEM)
-        ]
-        packed_spec = pl.BlockSpec(
-            (leaf_rows, n), lambda i: (i, 0), memory_space=pltpu.VMEM
-        )
-    return pl.pallas_call(
-        kernel,
-        grid=(p,),
-        in_specs=in_specs,
-        out_shape=(
-            jax.ShapeDtypeStruct((m, n), dt),
-            jax.ShapeDtypeStruct((p, n, n), dt),
-        ),
-        out_specs=(
-            packed_spec,
-            pl.BlockSpec((1, n, n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(a)
+    packed, t = geqrt(a.reshape(p, leaf_rows, n), precision)
+    return packed.reshape(m, n), t
 
 
 def _tree_plan(p: int, n: int, leaf_rows: int, arity: int):
@@ -248,28 +117,29 @@ def _tree_plan(p: int, n: int, leaf_rows: int, arity: int):
     return levels
 
 
+@functools.partial(
+    jax.jit, static_argnames=("nb", "leaf_rows", "arity", "shape")
+)
 def tsqr_factor(
     a: jnp.ndarray,
     nb: int,
-    ib: int = 128,
-    interpret: bool | None = None,
     leaf_rows: int | None = None,
     arity: int = 8,
+    shape: Tuple[int, int] | None = None,
 ) -> TSQRFactors:
     """TSQR-factor a tall-skinny A (M, n) with n <= nb, M % leaf_rows == 0
-    (leaf_rows defaults to the largest VMEM-budget leaf; api.tsqr pads M)."""
+    (leaf_rows defaults to ``auto_leaf_rows``; api.tsqr pads M). ``shape``
+    records the caller's unpadded (M, n) on the factors (default a.shape)."""
     m, n = a.shape
     if n > nb:
         raise ValueError(f"tsqr requires n={n} <= nb={nb}")
-    interp = resolve_interpret(interpret)
     lr = leaf_rows if leaf_rows is not None else auto_leaf_rows(m, n)
     if m % lr:
         raise ValueError(f"M={m} not a multiple of leaf_rows={lr}")
     p = m // lr
     if p > 1 and lr < 2 * n:
         raise ValueError(f"tree needs leaf_rows={lr} >= 2n={2*n}")
-    ib_eff = min(ib, n)
-    packed, ts = tall_geqrt(a, lr, ib=ib_eff, interpret=interp)
+    packed, ts = leaf_geqrt(a, lr)
     rs = jax.vmap(triu)(packed.reshape(p, lr, n)[:, :n, :])
 
     plan = _tree_plan(p, n, lr, arity)
@@ -277,7 +147,7 @@ def tsqr_factor(
     for ncomb, a_l, flat, rem in plan:
         # factor-order invariant: rs rows follow the current survivor list
         stack = rs[: ncomb * a_l].reshape(ncomb * a_l * n, n)
-        pk, tl = tall_geqrt(stack, a_l * n, ib=ib_eff, interpret=interp)
+        pk, tl = leaf_geqrt(stack, a_l * n)
         pk = pk.reshape(ncomb, a_l * n, n)
         rnew = jax.vmap(triu)(pk[:, :n, :])
         rs = (
@@ -286,28 +156,29 @@ def tsqr_factor(
             else rnew
         )
         levels.append((pk, tl, ncomb * a_l + len(rem), a_l))
-    return TSQRFactors(packed, ts, tuple(levels), rs[0], lr, (m, n), tuple(plan))
+    return TSQRFactors(
+        packed, ts, tuple(levels), rs[0], lr, shape or (m, n), tuple(plan)
+    )
 
 
+@functools.partial(jax.jit, static_argnames=("trans", "precision"))
 def tsqr_apply_q(
     f: TSQRFactors,
     c: jnp.ndarray,
     trans: bool = True,
     precision: str = "highest",
-    interpret: bool | None = None,
 ):
     """C ← Qᵀ C (trans) or Q C for the TSQR Q.
 
-    c: (Mc, P) with Mc <= f.shape[0] — ``api.tsqr(mode="factor")`` pads M up
-    to a multiple of the auto-selected ``f.leaf_rows`` (up to 4096 rows, a
-    much larger granule than nb), so external callers pass c in the ORIGINAL
+    c: (Mc, P) with Mc <= the padded M — ``api.tsqr(mode="factor")`` pads M up
+    to a multiple of the auto-selected ``f.leaf_rows`` (a much larger
+    granule than nb), so external callers pass c in the ORIGINAL
     row count and the padding/slicing happens here: the pad rows correspond
     to zero rows of the factored input, whose reflector rows are exactly
     zero, so Qᵀ/Q act as the identity on them.
     """
-    del interpret  # replay is pure XLA matmuls
     prec = resolve_precision(precision)
-    m, n = f.shape
+    m, n = f.packed_leaves.shape
     lr = f.leaf_rows
     p = m // lr
     mc, pcols = c.shape
@@ -319,13 +190,13 @@ def tsqr_apply_q(
     cb = c.reshape(p, lr, pcols)
 
     def leaf_apply(packed, t, cblk):
-        return larfb_body(packed, t, cblk, trans, prec)
+        return larfb(packed, t, cblk, trans, prec)
 
     def level_apply(tops, level, packed_lvl, t_lvl, tr):
         ncomb, a_l, flat, rem = level
         gather = jnp.asarray(flat)
         stack = tops[gather].reshape(ncomb, a_l * n, pcols)
-        new = jax.vmap(lambda pk, tm, st: larfb_body(pk, tm, st, tr, prec))(
+        new = jax.vmap(lambda pk, tm, st: larfb(pk, tm, st, tr, prec))(
             packed_lvl, t_lvl, stack
         )
         return tops.at[gather].set(new.reshape(ncomb * a_l, n, pcols))
@@ -345,6 +216,7 @@ def tsqr_apply_q(
     return cb.reshape(m, pcols)[:mc]
 
 
+@functools.partial(jax.jit, static_argnames=("precision",))
 def tsqr_form_q(
     f: TSQRFactors, precision: str = "highest"
 ) -> jnp.ndarray:
@@ -353,7 +225,7 @@ def tsqr_form_q(
     act on (p, n, n) top blocks seeded with I_n at the root only, and the
     leaf apply exploits C = [top; 0]:  Q_leaf C = C − V Tᵀ (V₁ᵀ top)."""
     prec = resolve_precision(precision)
-    m, n = f.shape
+    m, n = f.packed_leaves.shape
     lr = f.leaf_rows
     p = m // lr
     plan = f.plan
@@ -364,7 +236,7 @@ def tsqr_form_q(
         ncomb, a_l, flat, rem = level
         gather = jnp.asarray(flat)
         stack = tops[gather].reshape(ncomb, a_l * n, n)
-        new = jax.vmap(lambda pkx, tm, st: larfb_body(pkx, tm, st, False, prec))(
+        new = jax.vmap(lambda pkx, tm, st: larfb(pkx, tm, st, False, prec))(
             pk, tl, stack
         )
         tops = tops.at[gather].set(new.reshape(ncomb * a_l, n, n))

@@ -1,7 +1,7 @@
-"""Shared kernel utilities: precision/interpret resolution, masks, matmul."""
+"""Shared helpers for the tile ops: precision names, accumulation dtype,
+matmuls with an explicit precision, and triangle masks."""
 
 from __future__ import annotations
-
 
 import jax
 import jax.numpy as jnp
@@ -12,183 +12,112 @@ _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
 }
 
-# Manual bf16x3 fp32-emulated matmul (VERDICT r2 next-#2): Mosaic does not
-# lower lax.Precision.HIGH in-kernel, so the hi/lo split is built by hand in
-# dot/dot_t below. Resolves to itself (a string sentinel the dot helpers
-# recognize); it only changes the UPDATE kernels — the panel kernels
-# (geqrt.py) pin their own internal precision to HIGHEST.
-B3 = "b3"
-# bf16x4: the same 2-way split with the lo·lo term kept — the exact product
-# of the 16-bit split representations. One more native bf16 MXU pass than
-# b3 (4/3 of its flops) removes the DROPPED-TERM error, but the split's own
-# representation residual (~2⁻¹⁷ relative per operand) remains, so the
-# accuracy class only moves ~2× (measured: full-width QR relerr 3.05e-06 vs
-# b3's 7.08e-06 at 16384², BASELINE.md r5 precision ladder). Any 2-way
-# split is capped there; fp32-class needs the 3-way split's 6 passes =
-# exactly what Precision.HIGHEST already lowers to on the MXU — so the
-# ladder has no ≤1e-6 point cheaper than HIGHEST.
-B4 = "b4"
-# dropped-pass count per emulated mode (2-way hi/lo split passes kept)
-_EMULATED = {B3: 3, B4: 4}
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def resolve_precision(name: str):
-    if name in _EMULATED:
+def resolve_precision(name):
+    """Precision name → ``lax.Precision``. On the GPU a float32 product at
+    "default" may run in TF32 (about three decimal digits); "highest" keeps
+    full float32 and is what every accuracy gate assumes."""
+    if isinstance(name, jax.lax.Precision):
         return name
+    if name not in _PRECISIONS:
+        raise ValueError(f"precision={name!r} must be one of {sorted(_PRECISIONS)}")
     return _PRECISIONS[name]
 
 
-def _split_bf16(a):
-    """a ≈ hi + lo with both bf16: hi holds the top 8 mantissa bits, lo the
-    next 8 (the fp32 residual rounded to bf16)."""
-    hi = a.astype(jnp.bfloat16)
-    lo = (a - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def _split_bf16_xla(a):
-    """XLA-level protected split via integer mantissa masking. Outside
-    Pallas the _split_bf16 form is silently destroyed: this environment's
-    compile service runs with --xla_allow_excess_precision=true, under
-    which XLA elides the bf16→f32 round-trip inside the split (hi stays
-    fp32 ⇒ lo = a − a = 0), degrading the 3-pass emulation to ONE bf16
-    pass — measured relerr 2.35e-03 (= DEFAULT) at 3-pass cost. The probe
-    ladder (scripts/tpu_r3_b3_barrier.py, BASELINE.md r3): a barrier AFTER
-    the split is too late (fold happens inside); an optimization_barrier
-    between the converts fixes accuracy (4.4e-06 at 59 TFLOP/s on 4096³)
-    but each barrier is a scheduler FENCE — inside the hr drivers the
-    fences serialize the panel/update overlap and b3 measured SLOWER than
-    HIGHEST (49.6 vs 37.1 ms at 8192²); a bitcast round-trip is folded
-    right back (2.35e-03). The winner: hi = fp32 with the low 16 mantissa
-    bits MASKED OFF (bitcast → &0xFFFF0000 → bitcast) — no float-convert
-    pattern to elide, no fence, and hi→bf16 is an exact bit truncation.
-    Truncation doubles the split residual vs round-to-nearest (1.3e-05 vs
-    4.4e-06 on the 4096³ probe) — same error class, full speed (61
-    TFLOP/s). Inside Mosaic kernels the converts are explicit vector ops
-    and need no protection (_split_bf16)."""
-    hi32 = jax.lax.bitcast_convert_type(
-        jax.lax.bitcast_convert_type(a, jnp.int32) & jnp.int32(-65536),
-        jnp.float32,
-    )
-    return hi32.astype(jnp.bfloat16), (a - hi32).astype(jnp.bfloat16)
-
-
-def dot_b3_xla(a, b, dims, passes: int = 3):
-    """XLA-level (non-Pallas) 3/4-pass bf16 fp32 emulation — the barrier-
-    protected twin of _dot_bx, for drivers whose update matmuls are plain
-    XLA ops (the hr family). passes=4 adds the lo·lo term (B4)."""
-    def d(x, y):
-        return jax.lax.dot_general(
-            x, y, dimension_numbers=dims,
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.float32,
-        )
-
-    ah, al = _split_bf16_xla(a)
-    bh, bl = _split_bf16_xla(b)
-    out = d(ah, bh) + (d(ah, bl) + d(al, bh))
-    if passes >= 4:
-        out = out + d(al, bl)
-    return out
-
-
-def _dot_bx(a, b, dims, passes: int = 3):
-    """3/4-pass bf16 emulation of an fp32 contraction: AB ≈ Ah·Bh + Ah·Bl +
-    Al·Bh (+ Al·Bl for passes=4), each a native-speed bf16 MXU pass
-    accumulated in fp32. At 3 passes the dropped Al·Bl term is ~2⁻¹⁶
-    relative — the same order as the split's own representation error, so
-    the result carries ~16 mantissa bits (measured: QR relerr ~1e-5 vs
-    HIGHEST's ~3e-7, BASELINE.md r3). The 4th pass removes the dropped
-    term but not the representation residual (see B4 note above).
-    IN-KERNEL USE ONLY — at the XLA level use dot_b3_xla (excess-precision
-    folding, see _split_bf16_xla)."""
-    def d(x, y):
-        return jax.lax.dot_general(
-            x, y, dimension_numbers=dims,
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.float32,
-        )
-
-    ah, al = _split_bf16(a)
-    bh, bl = _split_bf16(b)
-    out = d(ah, bh) + (d(ah, bl) + d(al, bh))
-    if passes >= 4:
-        out = out + d(al, bl)
-    return out
-
-
-def _dot_b3(a, b, dims):
-    """Back-compat alias (r3 measurement scripts): 3-pass in-kernel form."""
-    return _dot_bx(a, b, dims, 3)
-
-
-def resolve_interpret(interpret) -> bool:
-    """None → auto: interpret Pallas kernels on non-TPU backends so the whole
-    suite runs on CPU (SURVEY.md §4 'fake backend' row; §5 race-detection row:
-    interpret mode is the Mosaic sanitizer path)."""
-    if interpret is None:
-        return jax.default_backend() != "tpu"
-    return bool(interpret)
-
-
 def acc_type(dt):
-    """Accumulation dtype for matmuls (pallas_guide: always set
-    preferred_element_type): fp32 for fp32/bf16 operands; float64 operands
-    (CPU/interpret-mode paths — TPUs have no native f64) must accumulate in
-    f64 or the whole factorization silently rounds to fp32 accuracy."""
+    """Accumulation dtype for matmuls: float32 for float32/bfloat16 operands;
+    float64 operands (the CPU test oracles) accumulate in float64, or the
+    whole factorization would silently round to float32 accuracy."""
     return dt if dt == jnp.float64 else jnp.float32
 
 
-def dot(a, b, precision):
-    """MXU matmul with dtype-matched accumulation."""
-    if precision in _EMULATED and a.dtype == jnp.float32:
-        return _dot_bx(
-            a, b, (((1,), (0,)), ((), ())), _EMULATED[precision]
-        ).astype(a.dtype)
-    if precision in _EMULATED:
-        precision = jax.lax.Precision.HIGHEST
-    return jnp.dot(
-        a, b, precision=precision, preferred_element_type=acc_type(a.dtype)
-    ).astype(a.dtype)
-
-
-def dot_t(a, b, precision):
-    """aᵀ @ b without materializing the transpose (MXU-native contraction)."""
-    if precision in _EMULATED and a.dtype == jnp.float32:
-        return _dot_bx(
-            a, b, (((0,), (0,)), ((), ())), _EMULATED[precision]
-        ).astype(a.dtype)
-    if precision in _EMULATED:
-        precision = jax.lax.Precision.HIGHEST
+def dot_general(a, b, dims, precision):
+    """``lax.dot_general`` with dtype-matched accumulation, cast back to a's
+    dtype."""
     out = jax.lax.dot_general(
-        a,
-        b,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        precision=precision,
+        a, b, dimension_numbers=dims, precision=precision,
         preferred_element_type=acc_type(a.dtype),
     )
     return out.astype(a.dtype)
 
 
-def tril_mask(m: int, n: int, k: int = 0):
-    """Boolean lower-triangle mask via broadcasted_iota (TPU needs ≥2D iota)."""
-    rows = jax.lax.broadcasted_iota(jnp.int32, (m, n), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (m, n), 1)
-    return rows >= cols - k
+def dot(a, b, precision):
+    """a @ b over the last axis of a and the second-to-last of b, batched
+    over any shared leading axes."""
+    nbatch = a.ndim - 2
+    batch = tuple(range(nbatch))
+    return dot_general(a, b, (((a.ndim - 1,), (nbatch,)), (batch, batch)), precision)
+
+
+def bdot_pair_rows(x, y, precision, blk: int = 512, cap_bytes: int = 2 << 30):
+    """xᵀ @ y contracting the row axis of (…, m, p) × (…, m, q) → (…, p, q),
+    batched over any shared leading axes, without materializing xᵀ.
+
+    A float32 GEMM accumulates its contraction sequentially, so its error
+    grows as √m·eps; over the thousands of rows of a panel that alone breaks
+    the 1e-6 residual gate. Tall contractions therefore run as one batched
+    GEMM over row blocks of ``blk`` rows whose partials are summed pairwise
+    (binary tree, in the accumulation dtype): the error drops to
+    ~√(blk + log m)·eps. The block count is capped so the partials stay
+    under ``cap_bytes``; past it the blocks grow taller. 2 GiB keeps 512-row
+    blocks for a whole 32768-column trailing update at nb = 256, the
+    setting under which the hh and hr factorizations met the gate there
+    (PERF.md). Fewer than two blocks take the plain contraction."""
+    nbatch = x.ndim - 2
+    batch = tuple(range(nbatch))
+    lead = x.shape[:-2]
+    m, p = x.shape[-2:]
+    q = y.shape[-1]
+    nlead = 1
+    for s in lead:
+        nlead *= s
+    size = jnp.dtype(acc_type(x.dtype)).itemsize
+    nblk = min(m // blk, max(1, cap_bytes // max(1, nlead * p * q * size)))
+    if nblk < 2:
+        return dot_general(x, y, (((nbatch,), (nbatch,)), (batch, batch)), precision)
+    be = (m // nblk) // 8 * 8
+    body = nblk * be
+    px = x[..., :body, :].reshape(*lead, nblk, be, p)
+    py = y[..., :body, :].reshape(*lead, nblk, be, q)
+    bdims = tuple(range(nbatch + 1))
+    parts = jax.lax.dot_general(
+        px, py, (((nbatch + 1,), (nbatch + 1,)), (bdims, bdims)),
+        precision=precision, preferred_element_type=acc_type(x.dtype),
+    )  # (…, nblk, p, q)
+    if body < m:
+        tail = jax.lax.dot_general(
+            x[..., body:, :], y[..., body:, :], (((nbatch,), (nbatch,)), (batch, batch)),
+            precision=precision, preferred_element_type=acc_type(x.dtype),
+        )
+        parts = jnp.concatenate([parts, tail[..., None, :, :]], axis=nbatch)
+    while parts.shape[nbatch] > 1:
+        n2 = parts.shape[nbatch] // 2
+        even = jax.lax.slice_in_dim(parts, 0, 2 * n2, 2, axis=nbatch)
+        odd = jax.lax.slice_in_dim(parts, 1, 2 * n2, 2, axis=nbatch)
+        rest = jax.lax.slice_in_dim(parts, 2 * n2, parts.shape[nbatch], axis=nbatch)
+        parts = jnp.concatenate([even + odd, rest], axis=nbatch)
+    return jnp.squeeze(parts, axis=nbatch).astype(x.dtype)
+
+
+def _rows_cols(shape):
+    rows = jax.lax.broadcasted_iota(jnp.int32, shape[-2:], 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, shape[-2:], 1)
+    return rows, cols
 
 
 def unit_lower(packed: jnp.ndarray) -> jnp.ndarray:
     """V = strictly-lower(packed) + I — the implicit-unit-diagonal convention
-    of LAPACK GEQRT packed output (ref/tile_ops.py)."""
-    m, n = packed.shape
-    rows = jax.lax.broadcasted_iota(jnp.int32, (m, n), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (m, n), 1)
-    v = jnp.where(rows > cols, packed, jnp.zeros_like(packed))
-    return v + jnp.where(rows == cols, jnp.ones_like(packed), jnp.zeros_like(packed))
+    of LAPACK GEQRT packed output (ref/tile_ops.py). Batched over leading
+    axes."""
+    rows, cols = _rows_cols(packed.shape)
+    one = jnp.ones((), packed.dtype)
+    zero = jnp.zeros((), packed.dtype)
+    return jnp.where(rows > cols, packed, jnp.where(rows == cols, one, zero))
 
 
 def triu(a: jnp.ndarray) -> jnp.ndarray:
-    m, n = a.shape
-    rows = jax.lax.broadcasted_iota(jnp.int32, (m, n), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (m, n), 1)
+    """Upper triangle (diagonal included), batched over leading axes."""
+    rows, cols = _rows_cols(a.shape)
     return jnp.where(rows <= cols, a, jnp.zeros_like(a))

@@ -1,5 +1,5 @@
-"""Modified LU for Householder reconstruction (the serial heart of the
-``square_method="hr"`` driver, drivers/square_hr.py).
+"""Modified LU for Householder reconstruction (the serial step of the
+``square_method="hr"`` drivers, drivers/square_hr.py).
 
 Given the top nb×nb block of a panel's orthonormal factor Q1 (from
 CholeskyQR2), factor
@@ -7,18 +7,16 @@ CholeskyQR2), factor
     Q1_top − diag(d) = L1 · U
 
 with L1 unit lower triangular, U upper triangular, and the sign
-modification d_j = −sign(diag entry at step j) chosen ON THE FLY so every
-pivot satisfies |u_jj| = |q_jj − d_j| ≥ 1 (entries of an orthonormal block
-are ≤ 1 in magnitude, and d_j has the opposite sign). This is the
+modification d_j = −sign(pivot at step j) chosen ON THE FLY so every pivot
+satisfies |u_jj| = |q_jj − d_j| ≥ 1 (entries of an orthonormal block are
+≤ 1 in magnitude, and d_j has the opposite sign). This is the
 Ballard/Demmel/Grigori/Knight "reconstruct Householder vectors from TSQR"
-LU, done TPU-natively: the only serial loop in the whole hr panel is this
-nb×nb kernel — the tall part of Y follows as one matmul
-(Q1_bot · U⁻¹, drivers/square_hr.py).
+LU. No pivoting is needed: the sign choice bounds the pivots to [1, 2].
 
-Kernel shape notes (pallas_guide): the (nb, nb) block lives in VMEM for the
-whole factorization; each of the nb steps is a handful of masked VPU
-reduce/FMA ops on the full block (rank-1 right-looking update). No pivoting
-is needed — the sign choice bounds the pivots away from zero, |piv| ∈ [1, 2].
+The elimination is a ``lax.fori_loop`` over the columns, ``unroll`` steps
+per loop iteration. A statically unrolled (recursive blocked) form runs
+faster alone, but every panel of a driver inlines its own copy, and its
+compile time grows with nb per panel (PERF.md).
 """
 
 from __future__ import annotations
@@ -27,80 +25,41 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tileqr.kernels.common import resolve_interpret
-
-
-def _mk_modlu_kernel(n: int):
-    def kernel(q_ref, lu_ref, d_ref):
-        dt = q_ref.dtype
-        zero = jnp.zeros((), dt)
-        one = jnp.ones((), dt)
-        sub = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
-        lane_row = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-
-        lu_ref[...] = q_ref[...]
-        d_ref[...] = jnp.zeros((1, n), dt)
-
-        def step(j, _):
-            m = lu_ref[...]
-            # row j (already final: rank-1 updates only touch rows > j) —
-            # a dynamic SUBLANE slice is one (1, n) vector load; the
-            # masked full-block reduce it replaces was a whole extra
-            # (n, n) pass per step (r4 panel-micro: modlu is 106 µs of the
-            # 274 µs fused panel, ~5 full-block passes/step)
-            rowj = lu_ref[pl.ds(j, 1), :]
-            piv0 = jnp.sum(
-                jnp.where(lane_row == j, rowj, zero), axis=1, keepdims=True
-            )
-            dj = jnp.where(piv0 > 0, -one, one)
-            piv = piv0 - dj  # |piv| = |q_jj| + 1 ∈ [1, 2]
-            colj = jnp.sum(jnp.where(lane == j, m, zero), axis=1, keepdims=True)
-            lcol = colj / piv
-            urow = jnp.where(lane_row == j, piv, rowj)
-            new = jnp.where((sub > j) & (lane > j), m - lcol * urow, m)
-            new = jnp.where(
-                (sub == j) & (lane >= j), jnp.broadcast_to(urow, (n, n)), new
-            )
-            new = jnp.where(
-                (sub > j) & (lane == j), jnp.broadcast_to(lcol, (n, n)), new
-            )
-            lu_ref[...] = new
-            d_ref[...] = jnp.where(lane_row == j, dj, d_ref[...])
-            return 0
-
-        jax.lax.fori_loop(0, n, step, 0, unroll=False)
-
-    return kernel
+# columns eliminated per loop iteration (PERF.md modlu sweep)
+UNROLL = 8
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def modified_lu(q_top: jnp.ndarray, interpret: bool | None = None):
+@functools.partial(jax.jit, static_argnames=("unroll",))
+def modified_lu(q_top: jnp.ndarray, unroll: int = UNROLL):
     """Factor q_top − diag(d) = L1·U with on-the-fly signs.
 
     q_top: (nb, nb), the top block of an orthonormal panel factor.
     Returns (lu, d): lu holds L1 strictly below the diagonal (unit diagonal
     implicit) and U on/above it; d is the (nb,) sign vector (entries ±1).
     """
-    interpret = resolve_interpret(interpret)
     n, n2 = q_top.shape
     if n != n2:
         raise ValueError(f"modified_lu expects a square block, got {q_top.shape}")
     dt = q_top.dtype
-    lu, d = pl.pallas_call(
-        _mk_modlu_kernel(n),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, n), dt),
-            jax.ShapeDtypeStruct((1, n), dt),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(q_top)
-    return lu, d[0]
+    idx = jnp.arange(n)
+    one = jnp.ones((), dt)
+    zero = jnp.zeros((), dt)
+
+    def step(j, carry):
+        a, d = carry
+        row = jax.lax.dynamic_index_in_dim(a, j, 0, keepdims=False)
+        col = jax.lax.dynamic_index_in_dim(a, j, 1, keepdims=False)
+        piv0 = jax.lax.dynamic_index_in_dim(row, j, 0, keepdims=False)
+        dj = jnp.where(piv0 > 0, -one, one)
+        piv = piv0 - dj
+        lcol = jnp.where(idx > j, col / piv, zero)
+        urow = jnp.where(idx > j, row, zero)
+        a = a - lcol[:, None] * urow[None, :]
+        a = jnp.where((idx[:, None] == j) & (idx[None, :] == j), piv, a)
+        a = jnp.where((idx[:, None] > j) & (idx[None, :] == j), lcol[:, None], a)
+        return a, jnp.where(idx == j, dj, d)
+
+    return jax.lax.fori_loop(
+        0, n, step, (q_top, jnp.zeros((n,), dt)), unroll=max(1, min(unroll, n))
+    )

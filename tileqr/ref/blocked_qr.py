@@ -4,8 +4,8 @@ The reference carries a sequential CPU Householder QR on the same tile layout
 used as the correctness oracle for "bitwise-stable tile outputs"
 [SURVEY.md §2.1 C9, BASELINE.json:5]. This module is the equivalent: a
 sequential numpy driver composing the tile ops of ref/tile_ops.py in the
-EXACT operation order of the TPU drivers (right-looking flat-tree, or the
-binary TT tree), so the TPU path's tile outputs can be compared against it
+EXACT operation order of the device drivers (right-looking flat-tree, or the
+binary TT tree), so the device path's tile outputs can be compared against it
 tile-by-tile. Runs in fp32 (comparison oracle) or fp64 (accuracy oracle).
 
 Factor layout (shared with drivers/square.py):

@@ -1,11 +1,12 @@
 """Pure-numpy reference semantics for the five tile kernels (L0 oracle).
 
-These are the normative contracts for the Pallas kernels (SURVEY.md §2.2,
-components C1–C5; LAPACK xGEQRT/xLARFB/xTSQRT/xTSMQR/xTTQRT semantics,
-consistent with BASELINE.json:5). Every Pallas kernel unit test compares
-against these functions; the blocked-QR oracle driver (ref/blocked_qr.py,
-reference component C9 "CPU reference") composes them in the same order as
-the TPU drivers so tile outputs are comparable tile-by-tile.
+These are the normative contracts for the tile ops (kernels/tile_ops.py;
+SURVEY.md §2.2, components C1–C5; LAPACK xGEQRT/xLARFB/xTSQRT/xTSMQR/xTTQRT
+semantics, consistent with BASELINE.json:5). Every tile-op unit test
+compares against these functions; the blocked-QR oracle driver
+(ref/blocked_qr.py, reference component C9 "CPU reference") composes them
+in the same order as the device drivers so tile outputs are comparable
+tile-by-tile.
 
 Conventions (LAPACK 'Forward'/'Columnwise' compact WY):
   * Householder reflector for a column x: beta = -sign(x0) * ||x||_2,
